@@ -1,0 +1,122 @@
+"""The CUDA traversal kernel vs its plain PyTorch version, on the card.
+
+Marked ``cuda``: each test skips itself when torch.cuda.is_available() is
+False (the decision is taken inside the fixture, never at import).  On a
+GPU machine:
+
+    python -m pytest tests/test_torch_cuda_traverse.py -q
+
+The kernel is built with -fmad=false, so on the same triangle it computes
+the plain version's t, u, v bit for bit.  The tests require equal hit
+flags, misses that keep t = max_t, and for closest-hit equal t, u, v where
+the prims agree; a prim may differ only on a tie at equal t.  Any-hit
+reports the first hit each side finds, so only its flag is compared.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from visionaray_torch.core.types import Ray
+from visionaray_torch.ops import traverse as trav
+from visionaray_torch.ops.cluster_bvh import build_cluster_bvh
+from visionaray_torch.scenes.sponza_like import sponza_like_scene
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture(scope="module")
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the traversal kernel has no CPU or "
+                    "interpret mode (chip_smoke.py runs it on the H100)")
+    return torch.device("cuda")
+
+
+@pytest.fixture(scope="module")
+def scene(cuda):
+    with torch.inference_mode():
+        s, cam = sponza_like_scene(target_tris=20000, device=cuda)
+        s.bvh = build_cluster_bvh(s.mesh, cluster_size=16, treelet_size=16)
+        rng = np.random.default_rng(0)
+        n = 20000
+        o = torch.as_tensor(rng.uniform([0.5, 0.5, 0.5], [23.5, 9.5, 11.5],
+                                        (n, 3)), dtype=torch.float32,
+                            device=cuda)
+        d = torch.as_tensor(rng.normal(size=(n, 3)), dtype=torch.float32,
+                            device=cuda)
+        d = d / d.norm(dim=-1, keepdim=True)
+    return s, Ray(o, d)
+
+
+def _check(got, ref, rays, any_hit):
+    live = rays[:, 6] >= 0
+    gh, rh = got[1] >= 0, ref[1] >= 0
+    assert torch.equal(gh, rh)
+    assert torch.equal(got[0][~gh], rays[:, 6][~gh])
+    assert int(live.sum()) > 0 and int(gh.sum()) > 0
+    if any_hit:   # the first hit found: traversal order picks which
+        return
+    both = gh & rh
+    same = both & (got[1] == ref[1])
+    assert torch.equal(got[0][same], ref[0][same])
+    # a prim may differ only on a tie (same t, other triangle)
+    assert torch.equal(got[0][both & ~same], ref[0][both & ~same])
+    assert torch.equal(got[2][same], ref[2][same])
+    assert torch.equal(got[3][same], ref[3][same])
+
+
+@pytest.mark.parametrize("any_hit", [False, True])
+def test_coherent_modes_match_plain(scene, any_hit):
+    s, ray = scene
+    bvh = s.bvh
+    n = ray.ori.shape[0]
+    mt = torch.full((n,), 1e30, device=ray.ori.device)
+    mt[::7] = -1.0
+    npad = trav._round_up(n, 8192)
+    rays = trav._pack_rays(ray.ori, ray.dir, mt, n, npad, pad_maxt=-1.0)
+    before = trav.LAUNCHES["any" if any_hit else "closest"]
+    got = trav.cluster_traverse(rays, bvh.nodes, bvh.tris, bvh.num_clusters,
+                                bvh.cluster_size, tile_lanes=4096,
+                                any_hit=any_hit)
+    assert trav.LAUNCHES["any" if any_hit else "closest"] == before + 1
+    roots, splits = trav._default_tiles(npad, 4096, rays.device)
+    ref = trav.traverse_plain(rays, bvh.nodes, bvh.tris, bvh.num_clusters,
+                              bvh.cluster_size, 4096, any_hit, roots, splits)
+    _check(got, ref, rays, any_hit)
+
+
+@pytest.mark.parametrize("any_hit", [False, True])
+def test_binned_rounds_match_plain(scene, any_hit, monkeypatch):
+    s, ray = scene
+    bvh = s.bvh
+    calls = []
+    real = trav.cluster_traverse
+
+    def check(rays, nodes, tris, C, K, tile_lanes, any_hit=False,
+              tile_roots=None, tile_splits=None, counters=None):
+        got = real(rays, nodes, tris, C, K, tile_lanes, any_hit, tile_roots,
+                   tile_splits)
+        ref = trav.traverse_plain(rays, nodes, tris, C, K, tile_lanes,
+                                  any_hit, tile_roots, tile_splits)
+        _check(got, ref, rays, any_hit)
+        calls.append(int((tile_splits < tile_lanes).sum()))
+        return got
+
+    monkeypatch.setattr(trav, "cluster_traverse", check)
+    mt = torch.full((ray.ori.shape[0],), 1e30, device=ray.ori.device)
+    with torch.inference_mode():
+        trav._binned_trace(ray, bvh, mt, 3, any_hit=any_hit)
+    assert len(calls) >= 1 and sum(calls) >= 1
+
+
+def test_wrapper_rejects_bad_inputs(scene):
+    s, ray = scene
+    bvh = s.bvh
+    rays = torch.zeros((4096, 8), device=ray.ori.device)
+    with pytest.raises(ValueError, match="tris"):
+        trav.cluster_traverse(rays, bvh.nodes, bvh.tris[:-1],
+                              bvh.num_clusters, bvh.cluster_size, 4096)
+    with pytest.raises(ValueError, match="nodes is on cpu"):
+        trav.cluster_traverse(rays, bvh.nodes.cpu(), bvh.tris,
+                              bvh.num_clusters, bvh.cluster_size, 4096)

@@ -1,0 +1,237 @@
+// ClusterBVH traversal for NVIDIA Hopper (sm_90a), one thread per ray.
+//
+// Replaces the Pallas TPU kernel visionaray_tpu/ops/pallas/traverse.py::
+// _traverse_kernel (launched by _cluster_traverse, traverse.py:514-586) in
+// the modes the path tracer uses: coherent closest-hit and any-hit from the
+// root, and the treelet-binned two-pass tiles (closest-hit and any-hit)
+// where lanes [0, split) of a tile start at rootA and the rest at rootB.
+//
+// Contract (the plain PyTorch version in traverse.py states it directly):
+// for every lane with max_t >= 0, the nearest triangle under the lane's
+// start node with 0 <= t < max_t (Moeller-Trumbore in the reference's
+// operation order, strict t < best_t fold), returned as (t, prim id as an
+// f32 value, u, v).  Any-hit lanes stop at the first such triangle and do
+// not write u, v.  Misses and dead lanes (max_t < 0) keep t = max_t,
+// prim = -1, u = v = 0.  Only heap-built trees (children of i at 2i+1 and
+// 2i+2) are taken; the radix-tree form with its kids column is not ported.
+//
+// What bounds it on this card: neither the 3.35 TB/s of device memory nor
+// the 67 TFLOP/s of f32 arithmetic.  The inputs that must move are small
+// (32 B a ray, 64 B a triangle, the whole 260k-triangle scene is 17 MB and
+// sits in the 50 MB L2); the work is dependent pointer chasing: each step
+// of a ray loads a node or a cluster whose address depends on the previous
+// step, and the 32 rays of a warp diverge in where they go.  So the time is
+// set by memory latency and by divergence, not by bytes or flops.
+//
+// What the design does about that: the TPU kernel's per-tile consensus
+// (SMEM scalar node walk, interval-hull frusta, 128-lane rows, tile
+// interleave) is dropped.  Each thread walks its own ray with a stack in
+// local memory, near child first by its slab entry distance, and skips
+// popped nodes whose entry is already behind its best hit.  The callers
+// sort rays (camera rays by direction octant and origin morton code,
+// bounce rays by treelet, octant and entry-point morton code), so the
+// threads of a warp mostly visit the same nodes and their loads coalesce
+// in L1/L2.  Node boxes load as one float4 + one float2, triangle records
+// as three float4 (the first 12 of 16 floats).  Making it fast (packets
+// per warp, wide BVH, persistent threads) is later work.
+//
+// Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -std=c++17
+// -fmad=false -shared -Xcompiler -fPIC.  -fmad=false keeps every product
+// and sum separately rounded, as the plain PyTorch version's elementwise
+// ops are, so the two agree to the bit on the same triangle.
+
+#include <cuda_runtime.h>
+#include <math.h>
+
+namespace {
+
+constexpr int kStackDepth = 64;      // traverse.py STACK_DEPTH
+constexpr float kInvClamp = 1e18f;   // traverse.py _INV_CLAMP
+// Relative widening of each slab interval.  The slab test and the triangle
+// test round differently; a triangle lying in a box face (the axis-aligned
+// floors and walls of the sponza-class scene bound their boxes exactly)
+// must not be culled by a last-ulp difference.  Widening only adds work.
+constexpr float kSlabPad = 1e-6f;
+
+struct RayData {
+  float ox, oy, oz, dx, dy, dz, ix, iy, iz;
+};
+
+__device__ __forceinline__ float clamp_inv(float d) {
+  return fminf(fmaxf(1.0f / d, -kInvClamp), kInvClamp);
+}
+
+// Entry distance of the ray into node n's box, or +inf when the box is
+// empty (padding), missed, behind the ray or beyond best_t.
+__device__ __forceinline__ float slab_entry(const float* __restrict__ nodes,
+                                            int n, const RayData& r,
+                                            float best_t) {
+  const float4 a = __ldg(reinterpret_cast<const float4*>(nodes + 8 * n));
+  const float2 b = __ldg(reinterpret_cast<const float2*>(nodes + 8 * n + 4));
+  // a = lo.x lo.y lo.z hi.x, b = hi.y hi.z
+  if (a.x > a.w) return INFINITY;
+  const float tx1 = (a.x - r.ox) * r.ix, tx2 = (a.w - r.ox) * r.ix;
+  const float ty1 = (a.y - r.oy) * r.iy, ty2 = (b.x - r.oy) * r.iy;
+  const float tz1 = (a.z - r.oz) * r.iz, tz2 = (b.y - r.oz) * r.iz;
+  float tn = fmaxf(fmaxf(fminf(tx1, tx2), fminf(ty1, ty2)), fminf(tz1, tz2));
+  float tf = fminf(fminf(fmaxf(tx1, tx2), fmaxf(ty1, ty2)), fmaxf(tz1, tz2));
+  tn -= fabsf(tn) * kSlabPad;
+  tf += fabsf(tf) * kSlabPad;
+  return (tf >= tn && tf >= 0.0f && tn < best_t) ? tn : INFINITY;
+}
+
+template <bool kAnyHit, bool kCount>
+__global__ void __launch_bounds__(128)
+traverse_kernel(const float4* __restrict__ rays,    // (npad, 8) as 2 float4
+                const float* __restrict__ nodes,    // (2C-1, 8)
+                const float4* __restrict__ tris,    // (C, K, 16) as 4 float4
+                const int* __restrict__ roots,      // (2, n_tiles)
+                const int* __restrict__ splits,     // (n_tiles,)
+                float* __restrict__ out_t, float* __restrict__ out_prim,
+                float* __restrict__ out_u, float* __restrict__ out_v,
+                int* __restrict__ counters,         // (npad, 2) or null
+                int npad, int n_tiles, int tile_lanes, int num_clusters,
+                int cluster_size) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= npad) return;
+  const float4 r0 = rays[2 * i];      // ox oy oz dx
+  const float4 r1 = rays[2 * i + 1];  // dy dz max_t pad
+  const float max_t = r1.z;
+  float bt = max_t, bp = -1.0f, bu = 0.0f, bv = 0.0f;
+  int n_box = 0, n_tri = 0;
+
+  if (max_t >= 0.0f) {
+    const int tile = i / tile_lanes;
+    const int lane = i - tile * tile_lanes;
+    int node = lane < splits[tile] ? roots[tile] : roots[n_tiles + tile];
+    RayData r;
+    r.ox = r0.x; r.oy = r0.y; r.oz = r0.z;
+    r.dx = r0.w; r.dy = r1.x; r.dz = r1.y;
+    r.ix = clamp_inv(r.dx); r.iy = clamp_inv(r.dy); r.iz = clamp_inv(r.dz);
+    const int leaf_base = num_clusters - 1;
+    int stack_node[kStackDepth];
+    float stack_t[kStackDepth];
+    int sp = 0;
+    bool done = false;
+
+    while (true) {
+      if (node >= leaf_base) {
+        const float4* rec =
+            tris + static_cast<size_t>(node - leaf_base) * cluster_size * 4;
+        for (int k = 0; k < cluster_size; ++k) {
+          const float4 a = __ldg(rec + 4 * k);      // v1x v1y v1z e1x
+          const float4 b = __ldg(rec + 4 * k + 1);  // e1y e1z e2x e2y
+          const float4 c = __ldg(rec + 4 * k + 2);  // e2z pid pad pad
+          if (kCount) ++n_tri;
+          const float v1x = a.x, v1y = a.y, v1z = a.z;
+          const float e1x = a.w, e1y = b.x, e1z = b.y;
+          const float e2x = b.z, e2y = b.w, e2z = c.x;
+          // operation order of traverse.py:258-274
+          const float s1x = r.dy * e2z - r.dz * e2y;
+          const float s1y = r.dz * e2x - r.dx * e2z;
+          const float s1z = r.dx * e2y - r.dy * e2x;
+          const float div = s1x * e1x + s1y * e1y + s1z * e1z;
+          bool ok = div != 0.0f;
+          const float inv_div = 1.0f / (ok ? div : 1.0f);
+          const float ddx = r.ox - v1x;
+          const float ddy = r.oy - v1y;
+          const float ddz = r.oz - v1z;
+          const float b1 = (ddx * s1x + ddy * s1y + ddz * s1z) * inv_div;
+          ok = ok && (b1 >= 0.0f) && (b1 <= 1.0f);
+          const float s2x = ddy * e1z - ddz * e1y;
+          const float s2y = ddz * e1x - ddx * e1z;
+          const float s2z = ddx * e1y - ddy * e1x;
+          const float b2 = (r.dx * s2x + r.dy * s2y + r.dz * s2z) * inv_div;
+          ok = ok && (b2 >= 0.0f) && (b1 + b2 <= 1.0f);
+          const float t = (e2x * s2x + e2y * s2y + e2z * s2z) * inv_div;
+          if (ok && t >= 0.0f && t < bt) {
+            bt = t;
+            bp = c.y;
+            if (kAnyHit) {
+              done = true;
+              break;
+            }
+            bu = b1;
+            bv = b2;
+          }
+        }
+        if (kAnyHit && done) break;
+      } else {
+        const int left = 2 * node + 1;
+        const int right = 2 * node + 2;
+        const float tl = slab_entry(nodes, left, r, bt);
+        const float tr = slab_entry(nodes, right, r, bt);
+        if (kCount) n_box += 2;
+        const bool hl = tl < INFINITY, hr = tr < INFINITY;
+        if (hl || hr) {
+          if (hl && hr) {
+            const bool left_first = tl <= tr;
+            stack_node[sp] = left_first ? right : left;
+            stack_t[sp] = left_first ? tr : tl;
+            ++sp;
+            node = left_first ? left : right;
+          } else {
+            node = hl ? left : right;
+          }
+          continue;
+        }
+      }
+      // pop the next node whose entry is still in front of the best hit
+      bool found = false;
+      while (sp > 0) {
+        --sp;
+        if (stack_t[sp] < bt) {
+          node = stack_node[sp];
+          found = true;
+          break;
+        }
+      }
+      if (!found) break;
+    }
+  }
+  out_t[i] = bt;
+  out_prim[i] = bp;
+  out_u[i] = bu;
+  out_v[i] = bv;
+  if (kCount) {
+    counters[2 * i] = n_box;
+    counters[2 * i + 1] = n_tri;
+  }
+}
+
+}  // namespace
+
+// Plain C entry point for ctypes.  Launches on ``stream`` and returns
+// cudaGetLastError() of the launch (0 = success).
+extern "C" int vsnray_traverse(const void* rays, const void* nodes,
+                               const void* tris, const void* roots,
+                               const void* splits, void* out_t,
+                               void* out_prim, void* out_u, void* out_v,
+                               void* counters, int npad, int n_tiles,
+                               int tile_lanes, int num_clusters,
+                               int cluster_size, int any_hit, void* stream) {
+  const dim3 block(128);
+  const dim3 grid((npad + 127) / 128);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float4* r = static_cast<const float4*>(rays);
+  const float* nd = static_cast<const float*>(nodes);
+  const float4* tr = static_cast<const float4*>(tris);
+  const int* ro = static_cast<const int*>(roots);
+  const int* sp = static_cast<const int*>(splits);
+  float* ot = static_cast<float*>(out_t);
+  float* op = static_cast<float*>(out_prim);
+  float* ou = static_cast<float*>(out_u);
+  float* ov = static_cast<float*>(out_v);
+  int* cnt = static_cast<int*>(counters);
+#define VSNRAY_LAUNCH(ANY, CNT)                                             \
+  traverse_kernel<ANY, CNT><<<grid, block, 0, s>>>(                         \
+      r, nd, tr, ro, sp, ot, op, ou, ov, cnt, npad, n_tiles, tile_lanes,    \
+      num_clusters, cluster_size)
+  if (any_hit) {
+    if (cnt) VSNRAY_LAUNCH(true, true); else VSNRAY_LAUNCH(true, false);
+  } else {
+    if (cnt) VSNRAY_LAUNCH(false, true); else VSNRAY_LAUNCH(false, false);
+  }
+#undef VSNRAY_LAUNCH
+  return static_cast<int>(cudaGetLastError());
+}

@@ -1,0 +1,649 @@
+"""ClusterBVH traversal: the hand-written CUDA kernel, its plain PyTorch
+version, and the glue around them (port of ops/pallas/traverse.py).
+
+Every traversal of the path tracer goes through ``cluster_traverse``:
+
+- on CUDA tensors it launches ``ops/cuda/traverse.cu`` (built with nvcc at
+  first use into ``build/visionaray_torch/<source hash>/``, loaded with
+  ctypes) and adds one to ``LAUNCHES[mode]``;
+- on CPU tensors it runs ``traverse_plain``, a brute-force Moeller-Trumbore
+  of each lane against every cluster under its start node.  It does not
+  depend on traversal order, so it is an independent oracle for the kernel.
+
+The kernel works on lanes laid out as ``_pack_rays`` makes them: one
+``(npad, 8)`` f32 row per lane ``[ox oy oz dx dy dz max_t pad]``, tile
+``i // tile_lanes`` for lane i; lanes with max_t < 0 are dead.  Tile
+metadata (start nodes ``tile_roots`` (2, n_tiles), pass split
+``tile_splits`` (n_tiles,)) comes from the same glue as the TPU path, so
+TILE_ROWS, INTERLEAVE, BINNED_ROWS, BIN_M and _ENTRY_CHUNK keep their JAX
+values.
+
+The JAX package's VSNRAY_FANOUT, VSNRAY_HALFSKIP and VSNRAY_DIRBITS switches
+are fixed at their defaults (binary descent, no half-cluster skip, no
+direction key bits: the binned sort key keeps 19 morton bits); the port
+reads no environment variables.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import math
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+import torch
+
+from visionaray_torch.core.types import FLT_MAX, HitRecord, Ray
+from visionaray_torch.device import take
+from visionaray_torch.ops.lbvh import morton3d
+
+TILE_ROWS = 32       # coherent path: tile = TILE_ROWS * 128 lanes
+INTERLEAVE = 2       # tiles per TPU grid step; fixes the padding granule
+STACK_DEPTH = 64     # kernel stack; a heap of C clusters needs log2(C)
+_INV_CLAMP = 1e18    # 1/d is clamped to +-1e18
+BIN_M = 6            # treelet slots per ray on the binned closest path
+BINNED_ROWS = 16     # binned path: tile = BINNED_ROWS * 128 lanes
+_ENTRY_CHUNK = 1 << 15   # rays per treelet-entry chunk (bounds N x S)
+TWO_PASS_CAP_FRAC = 0.08  # cluster_closest_hit(two_pass=True) ray cap
+
+# Kernel launches per mode; each CUDA launch of cluster_traverse adds one.
+#   closest         coherent closest-hit from the root (bounce 0)
+#   any             coherent any-hit from the root (bounce-0 NEE shadows)
+#   binned_closest  two-pass tiles, closest-hit (bounces 1..)
+#   binned_any      two-pass tiles, any-hit (NEE shadows of bounces 1..)
+LAUNCHES = {"closest": 0, "any": 0, "binned_closest": 0, "binned_any": 0}
+
+_SRC = Path(__file__).resolve().parent / "cuda" / "traverse.cu"
+_BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / \
+    "visionaray_torch"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3",
+              "-std=c++17", "-fmad=false", "-Xptxas", "-v", "-shared",
+              "-Xcompiler", "-fPIC"]
+# filled by the first build or load: seconds, library path, nvcc's output
+BUILD_INFO: dict = {}
+_LIB = None
+
+
+def reset_launch_counts():
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def _nvcc() -> str:
+    for cand in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if cand and Path(cand, "bin", "nvcc").exists():
+            return str(Path(cand, "bin", "nvcc"))
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: the traversal kernel is built "
+                           "from ops/cuda/traverse.cu at first use")
+    return found
+
+
+def _library():
+    """Build (once per source hash) and load the kernel's shared library."""
+    global _LIB
+    if _LIB is not None:
+        return _LIB
+    src = _SRC.read_bytes()
+    key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    out_dir = _BUILD_ROOT / key[:16]
+    lib_path = out_dir / "libvsnray_traverse.so"
+    t0 = time.perf_counter()
+    if not lib_path.exists():
+        out_dir.mkdir(parents=True, exist_ok=True)
+        tmp = out_dir / f"libvsnray_traverse.{os.getpid()}.tmp.so"
+        proc = subprocess.run(
+            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(_SRC)],
+            capture_output=True, text=True)
+        (out_dir / "nvcc.log").write_text(proc.stdout + proc.stderr)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed on {_SRC}:\n{proc.stderr}")
+        os.replace(tmp, lib_path)
+    log = out_dir / "nvcc.log"
+    BUILD_INFO.update(seconds=time.perf_counter() - t0, path=str(lib_path),
+                      log=log.read_text() if log.exists() else "")
+    lib = ctypes.CDLL(str(lib_path))
+    fn = lib.vsnray_traverse
+    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 + \
+        [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    _LIB = lib
+    return lib
+
+
+def _round_up(x, m):
+    return -(-x // m) * m
+
+
+def _default_tiles(npad, tile_lanes, device):
+    n_tiles = npad // tile_lanes
+    roots = torch.zeros((2, n_tiles), dtype=torch.int32, device=device)
+    splits = torch.full((n_tiles,), tile_lanes, dtype=torch.int32,
+                        device=device)
+    return roots, splits
+
+
+def _check_inputs(rays, nodes, tris, num_clusters, cluster_size, tile_lanes,
+                  tile_roots, tile_splits):
+    npad = rays.shape[0]
+    C, K = num_clusters, cluster_size
+    n_tiles = npad // tile_lanes
+    want = [
+        (rays, (npad, 8), torch.float32),
+        (nodes, (2 * C - 1, 8), torch.float32),
+        (tris, (C, K // 8, 128), torch.float32),
+        (tile_roots, (2, n_tiles), torch.int32),
+        (tile_splits, (n_tiles,), torch.int32),
+    ]
+    for name, (x, shape, dtype) in zip(
+            ("rays", "nodes", "tris", "tile_roots", "tile_splits"), want):
+        if tuple(x.shape) != shape or x.dtype != dtype:
+            raise ValueError(f"cluster_traverse: {name} must be {dtype} "
+                             f"{shape}, got {x.dtype} {tuple(x.shape)}")
+        if x.device != rays.device:
+            raise ValueError(f"cluster_traverse: {name} is on {x.device}, "
+                             f"rays on {rays.device}")
+        if not x.is_contiguous():
+            raise ValueError(f"cluster_traverse: {name} must be contiguous")
+    if npad == 0 or npad % tile_lanes:
+        raise ValueError(f"cluster_traverse: {npad} lanes is not a positive "
+                         f"multiple of tile_lanes={tile_lanes}")
+    if C & (C - 1) or C < 2 or K % 8:
+        raise ValueError("cluster_traverse needs a heap-built ClusterBVH "
+                         "(C a power of two >= 2, K a multiple of 8)")
+    if int(math.log2(C)) >= STACK_DEPTH:
+        raise ValueError("heap too deep for the traversal stack")
+
+
+def cluster_traverse(rays, nodes, tris, num_clusters: int, cluster_size: int,
+                     tile_lanes: int, any_hit: bool = False,
+                     tile_roots=None, tile_splits=None, counters=None):
+    """Closest-hit (or any-hit) of packed lanes under per-lane start nodes.
+
+    ``rays`` (npad, 8) f32 from ``_pack_rays``; ``tile_roots`` (2, n_tiles)
+    and ``tile_splits`` (n_tiles,) i32, or None for the coherent layout
+    (every lane starts at the root).  Returns (t, prim, u, v), each
+    (npad,) f32; prim is the prim id as an f32 value, -1 on a miss, and
+    misses and dead lanes keep t = max_t.  ``counters``: optional (npad, 2)
+    i32 tensor the kernel fills with per-lane box and triangle tests.
+
+    CUDA tensors launch the kernel; CPU tensors run ``traverse_plain``.
+    """
+    npad = rays.shape[0]
+    two_pass = tile_roots is not None
+    if not two_pass:
+        tile_roots, tile_splits = _default_tiles(npad, tile_lanes,
+                                                 rays.device)
+    _check_inputs(rays, nodes, tris, num_clusters, cluster_size, tile_lanes,
+                  tile_roots, tile_splits)
+    if rays.device.type == "cpu":
+        return traverse_plain(rays, nodes, tris, num_clusters, cluster_size,
+                              tile_lanes, any_hit, tile_roots, tile_splits)
+    if rays.device.type != "cuda":
+        raise ValueError(f"cluster_traverse: no kernel for {rays.device}")
+    for x in (rays, nodes, tris):
+        if x.data_ptr() % 16:
+            raise ValueError("cluster_traverse: rays, nodes and tris must "
+                             "be 16-byte aligned")
+    if counters is not None and (tuple(counters.shape) != (npad, 2)
+                                 or counters.dtype != torch.int32
+                                 or counters.device != rays.device
+                                 or not counters.is_contiguous()):
+        raise ValueError("cluster_traverse: counters must be contiguous "
+                         "int32 (npad, 2) on the rays' device")
+    lib = _library()
+    outs = [torch.empty((npad,), dtype=torch.float32, device=rays.device)
+            for _ in range(4)]
+    with torch.cuda.device(rays.device):
+        stream = torch.cuda.current_stream(rays.device).cuda_stream
+        err = lib.vsnray_traverse(
+            rays.data_ptr(), nodes.data_ptr(), tris.data_ptr(),
+            tile_roots.data_ptr(), tile_splits.data_ptr(),
+            *[o.data_ptr() for o in outs],
+            None if counters is None else counters.data_ptr(),
+            npad, npad // tile_lanes, tile_lanes, num_clusters,
+            cluster_size, int(any_hit), stream)
+    if err != 0:
+        raise RuntimeError(f"traverse kernel launch failed: cudaError {err}")
+    mode = ("binned_" if two_pass else "") + ("any" if any_hit else
+                                              "closest")
+    LAUNCHES[mode] += 1
+    return tuple(outs)
+
+
+def _mt(o, d, rec):
+    """Moeller-Trumbore of lanes (L, 1) against records (1, M) in the
+    kernel's operation order (traverse.py:258-274); returns (t, b1, b2, ok)
+    each (L, M)."""
+    ox, oy, oz = o[:, 0:1], o[:, 1:2], o[:, 2:3]
+    dx, dy, dz = d[:, 0:1], d[:, 1:2], d[:, 2:3]
+    v1x, v1y, v1z = rec[None, :, 0], rec[None, :, 1], rec[None, :, 2]
+    e1x, e1y, e1z = rec[None, :, 3], rec[None, :, 4], rec[None, :, 5]
+    e2x, e2y, e2z = rec[None, :, 6], rec[None, :, 7], rec[None, :, 8]
+    s1x = dy * e2z - dz * e2y
+    s1y = dz * e2x - dx * e2z
+    s1z = dx * e2y - dy * e2x
+    div = s1x * e1x + s1y * e1y + s1z * e1z
+    ok = div != 0.0
+    inv_div = 1.0 / torch.where(ok, div, 1.0)
+    ddx = ox - v1x
+    ddy = oy - v1y
+    ddz = oz - v1z
+    b1 = (ddx * s1x + ddy * s1y + ddz * s1z) * inv_div
+    ok = ok & (b1 >= 0.0) & (b1 <= 1.0)
+    s2x = ddy * e1z - ddz * e1y
+    s2y = ddz * e1x - ddx * e1z
+    s2z = ddx * e1y - ddy * e1x
+    b2 = (dx * s2x + dy * s2y + dz * s2z) * inv_div
+    ok = ok & (b2 >= 0.0) & (b1 + b2 <= 1.0)
+    t = (e2x * s2x + e2y * s2y + e2z * s2z) * inv_div
+    return t, b1, b2, ok
+
+
+def traverse_plain(rays, nodes, tris, num_clusters: int, cluster_size: int,
+                   tile_lanes: int, any_hit: bool, tile_roots, tile_splits):
+    """The kernel's contract in plain PyTorch, brute force.
+
+    Each live lane is tested against every triangle of every cluster under
+    its start node -- on a heap the subtree of node n at depth dn covers the
+    contiguous clusters [((n+1) << (D-dn)) - 1 - (C-1), + 2^(D-dn)), with
+    D = log2(C) -- in cluster order, folding with the strict t < best_t
+    (closest-hit: the first of equal nearest; any-hit: the first hit with
+    t < max_t).  ``nodes`` is not read: no box culls anything.
+    """
+    npad = rays.shape[0]
+    dev = rays.device
+    C, K = num_clusters, cluster_size
+    D = int(math.log2(C))
+    lane = torch.arange(npad, device=dev)
+    tile = lane // tile_lanes
+    in_a = (lane - tile * tile_lanes) < take(tile_splits, tile)
+    start = torch.where(in_a, take(tile_roots[0], tile),
+                        take(tile_roots[1], tile))
+    mt = rays[:, 6]
+    bt = mt.clone()
+    bp = torch.full((npad,), -1.0, dtype=torch.float32, device=dev)
+    bu = torch.zeros((npad,), dtype=torch.float32, device=dev)
+    bv = torch.zeros((npad,), dtype=torch.float32, device=dev)
+    recs = tris.reshape(C, K, 16)
+    live = mt >= 0.0
+    budget = (1 << 24) if dev.type == "cuda" else (1 << 20)
+    for n in torch.unique(start[live]).tolist():
+        idx = torch.nonzero(live & (start == n)).reshape(-1)
+        dn = (n + 1).bit_length() - 1
+        span = 1 << (D - dn)
+        c0 = ((n + 1) << (D - dn)) - 1 - (C - 1)
+        o = rays[idx, 0:3]
+        d = rays[idx, 3:6]
+        g_t, g_p = bt[idx], bp[idx]
+        g_u, g_v = bu[idx], bv[idx]
+        g_mt = mt[idx]
+        step = max(1, budget // (idx.numel() * K))
+        for j0 in range(c0, c0 + span, step):
+            rec = recs[j0:min(j0 + step, c0 + span)].reshape(-1, 16)
+            t, b1, b2, ok = _mt(o, d, rec)
+            if any_hit:
+                valid = ok & (t >= 0.0) & (t < g_mt[:, None]) \
+                    & (g_t >= g_mt)[:, None]
+                first = torch.argmax(valid.to(torch.uint8), dim=1)
+                upd = valid.any(dim=1)
+                g_t = torch.where(upd, t.gather(1, first[:, None])[:, 0], g_t)
+                g_p = torch.where(upd, rec[first, 9], g_p)
+            else:
+                tv = torch.where(ok & (t >= 0.0), t, math.inf)
+                best = torch.argmin(tv, dim=1)
+                tb = tv.gather(1, best[:, None])[:, 0]
+                upd = tb < g_t
+                g_t = torch.where(upd, tb, g_t)
+                g_p = torch.where(upd, rec[best, 9], g_p)
+                g_u = torch.where(upd, b1.gather(1, best[:, None])[:, 0], g_u)
+                g_v = torch.where(upd, b2.gather(1, best[:, None])[:, 0], g_v)
+        bt[idx], bp[idx], bu[idx], bv[idx] = g_t, g_p, g_u, g_v
+    return bt, bp, bu, bv
+
+
+def _pack_rays(o, d, mt, n, npad, pad_maxt):
+    """Lanes as (npad, 8) rows [ox oy oz dx dy dz max_t 0]; padding lanes
+    are [0 0 0 1 1 1 pad_maxt 0]."""
+    rows = torch.cat([o, d, mt[:, None], torch.zeros_like(mt)[:, None]],
+                     dim=1)
+    if npad > n:
+        pad_row = torch.tensor([0, 0, 0, 1, 1, 1, pad_maxt, 0],
+                               dtype=torch.float32, device=o.device)
+        rows = torch.cat([rows, pad_row.expand(npad - n, 8)], dim=0)
+    return rows.contiguous()
+
+
+def _octant(d):
+    return ((d[:, 0] < 0).to(torch.int64)
+            + ((d[:, 1] < 0).to(torch.int64) << 1)
+            + ((d[:, 2] < 0).to(torch.int64) << 2))
+
+
+def _inverse_perm(perm):
+    inv = torch.empty_like(perm)
+    inv[perm] = torch.arange(perm.shape[0], dtype=perm.dtype,
+                             device=perm.device)
+    return inv
+
+
+def _coherence_perm(o, d, root_lo, root_hi):
+    """Sort key: direction octant (3b) | origin morton (29b), stable, so a
+    caller's pixel-block order survives within an octant.  Returns (perm,
+    inv_perm)."""
+    ext = torch.clamp_min(root_hi - root_lo, 1e-9)
+    q = torch.clamp((o - root_lo) / ext, 0.0, 1.0)
+    key = (_octant(d) << 29) | (morton3d(q) >> 1)
+    perm = torch.argsort(key, stable=True)
+    return perm, _inverse_perm(perm)
+
+
+def _require_heap(cbvh):
+    if not cbvh.heap:
+        raise NotImplementedError(
+            "radix-tree ClusterBVHs (kids column, C == 1) are not ported "
+            "yet: ROADMAP queue 2, 1e")
+
+
+def _traverse_sorted(o, d, mt, n, cbvh):
+    """Kernel over pre-sorted rays in coherent tiles; returns (n, 4)
+    [t prim u v]."""
+    chunk = TILE_ROWS * 128 * INTERLEAVE
+    npad = _round_up(max(n, chunk), chunk)
+    rays = _pack_rays(o, d, mt, n, npad, pad_maxt=-1.0)
+    t, prim, u, v = cluster_traverse(
+        rays, cbvh.nodes, cbvh.tris, cbvh.num_clusters, cbvh.cluster_size,
+        tile_lanes=TILE_ROWS * 128, any_hit=False)
+    return torch.stack([t[:n], prim[:n], u[:n], v[:n]], dim=1)
+
+
+def _flat_rays(ray: Ray, max_t):
+    o = ray.ori.reshape(-1, 3).to(torch.float32)
+    d = ray.dir.reshape(-1, 3).to(torch.float32)
+    mt = torch.as_tensor(max_t, dtype=torch.float32, device=o.device)
+    mt = mt.expand(ray.batch_shape).reshape(-1)
+    return o, d, mt
+
+
+def _closest_record(outs, ray: Ray, mesh) -> HitRecord:
+    """HitRecord from kernel outputs (n, 4).  The kernel's (t, u, v) pass
+    through as the JAX forward does (_hit_tuv); its recompute backward
+    comes with the training slice."""
+    bs = ray.batch_shape
+    prim = outs[:, 1].reshape(bs)
+    hit = prim >= 0.0
+    pid = torch.where(hit, prim.to(torch.int32), 0)
+    return HitRecord(
+        hit=hit,
+        t=torch.where(hit, outs[:, 0].reshape(bs), FLT_MAX),
+        prim_id=pid,
+        geom_id=take(mesh.geom_ids, pid),
+        u=torch.where(hit, outs[:, 2].reshape(bs), 0.0),
+        v=torch.where(hit, outs[:, 3].reshape(bs), 0.0),
+    )
+
+
+def _any_record(outs, ray: Ray, mesh) -> HitRecord:
+    bs = ray.batch_shape
+    prim = outs[:, 1].reshape(bs)
+    t = outs[:, 0].reshape(bs)
+    hit = prim >= 0.0
+    pid = torch.where(hit, prim.to(torch.int32), 0)
+    return HitRecord(hit=hit, t=torch.where(hit, t, FLT_MAX), prim_id=pid,
+                     geom_id=take(mesh.geom_ids, pid),
+                     u=torch.zeros_like(t), v=torch.zeros_like(t))
+
+
+def cluster_closest_hit(ray: Ray, cbvh, mesh, max_t=FLT_MAX,
+                        sort_rays: bool = True,
+                        two_pass: bool = False) -> HitRecord:
+    """Closest hit over the whole tree, coherent tiles.
+
+    ``two_pass``: trace first with rays capped at TWO_PASS_CAP_FRAC of the
+    scene diagonal, then re-trace only the capped misses at full range.
+    """
+    _require_heap(cbvh)
+    o, d, mt = _flat_rays(ray, max_t)
+    n = o.shape[0]
+    chunk = TILE_ROWS * 128 * INTERLEAVE
+    root_lo = cbvh.nodes[0, 0:3]
+    root_hi = cbvh.nodes[0, 3:6]
+    inv = None
+    if sort_rays and n > chunk:
+        perm, inv = _coherence_perm(o, d, root_lo, root_hi)
+        o, d, mt = o[perm], d[perm], mt[perm]
+
+    if two_pass:
+        diag = torch.linalg.norm(root_hi - root_lo)
+        cap = TWO_PASS_CAP_FRAC * diag
+        outs1 = _traverse_sorted(o, d, torch.minimum(mt, cap), n, cbvh)
+        missed = (outs1[:, 1] < 0.0) & (mt > cap)
+        perm2 = torch.argsort((~missed).to(torch.int32), stable=True)
+        inv2 = _inverse_perm(perm2)
+        mt2 = torch.where(missed, mt, -1.0)
+        outs2 = _traverse_sorted(o[perm2], d[perm2], mt2[perm2], n, cbvh)
+        outs = torch.where(missed[:, None], outs2[inv2], outs1)
+    else:
+        outs = _traverse_sorted(o, d, mt, n, cbvh)
+    if inv is not None:
+        outs = outs[inv]
+    return _closest_record(outs, ray, mesh)
+
+
+def cluster_any_hit(ray: Ray, cbvh, mesh, max_t,
+                    sort_rays: bool = True) -> HitRecord:
+    """Occlusion query over the whole tree, coherent tiles."""
+    _require_heap(cbvh)
+    o, d, mt = _flat_rays(ray, max_t)
+    n = o.shape[0]
+    chunk = TILE_ROWS * 128 * INTERLEAVE
+    npad = _round_up(max(n, chunk), chunk)
+    inv = None
+    if sort_rays and n > chunk:
+        perm, inv = _coherence_perm(o, d, cbvh.nodes[0, 0:3],
+                                    cbvh.nodes[0, 3:6])
+        o, d, mt = o[perm], d[perm], mt[perm]
+    rays = _pack_rays(o, d, mt, n, npad, pad_maxt=-1.0)
+    t, prim, _, _ = cluster_traverse(
+        rays, cbvh.nodes, cbvh.tris, cbvh.num_clusters, cbvh.cluster_size,
+        tile_lanes=TILE_ROWS * 128, any_hit=True)
+    outs = torch.stack([t[:n], prim[:n]], dim=1)
+    if inv is not None:
+        outs = outs[inv]
+    return _any_record(outs, ray, mesh)
+
+
+# ---------------------------------------------------------------------------
+# Treelet-binned traversal, the incoherent-ray path: (ray, treelet) pairs
+# are processed in rounds in entry order, each round sorted treelet-major so
+# a kernel tile holds rays entering one treelet (or two, as two passes).
+
+
+def _treelet_entries(o, d, mt, tlo, thi, m: int):
+    """Entry distances of each ray into its m nearest treelets.
+
+    Returns (ent (N, m) ascending, inf = empty slot; slot (N, m) int64 with
+    -1 = "whole tree": a ray overlapping more than m treelets gets its last
+    slot replaced by a whole-tree pass from the m-th nearest entry).
+    Chunked by _ENTRY_CHUNK rays; the result per ray does not depend on the
+    chunking.
+    """
+    S = tlo.shape[0]
+    s_iota = torch.arange(S, device=o.device)[None, :]
+    ents, slots = [], []
+    for c0 in range(0, o.shape[0], _ENTRY_CHUNK):
+        oc = o[c0:c0 + _ENTRY_CHUNK]
+        dc = d[c0:c0 + _ENTRY_CHUNK]
+        mc = mt[c0:c0 + _ENTRY_CHUNK]
+        inv = torch.clamp(1.0 / dc, -_INV_CLAMP, _INV_CLAMP)
+        t1 = (tlo[None, :, :] - oc[:, None, :]) * inv[:, None, :]
+        t2 = (thi[None, :, :] - oc[:, None, :]) * inv[:, None, :]
+        tn = torch.amax(torch.minimum(t1, t2), dim=-1)
+        tf = torch.amin(torch.maximum(t1, t2), dim=-1)
+        hit = (tf >= tn) & (tf >= 0.0) & (tn < mc[:, None])
+        work = torch.where(hit, torch.clamp_min(tn, 0.0), math.inf)
+        e_c, s_c = [], []
+        for _ in range(m):
+            idx_r = torch.argmin(work, dim=-1)
+            e_c.append(torch.amin(work, dim=-1))
+            s_c.append(idx_r)
+            work = torch.where(s_iota == idx_r[:, None], math.inf, work)
+        slot = torch.stack(s_c, dim=-1)
+        ovf = hit.sum(dim=-1) > m
+        slot[:, m - 1] = torch.where(ovf, -1, slot[:, m - 1])
+        ents.append(torch.stack(e_c, dim=-1))
+        slots.append(slot)
+    return torch.cat(ents), torch.cat(slots)
+
+
+def _two_pass_tile_meta(skey_s, troots, S: int, n_tiles: int, chunk: int,
+                        lca_steps: int, npad: int):
+    """Per-tile (split, rootA, rootB) from the sorted segment keys.
+
+    ``skey_s`` (npad,) sorted: treelet index in [0, S), S for whole-tree
+    slots, S+1 for dead/padding lanes.  split: end of the tile's first
+    segment, in [1, chunk].  rootA: that segment's treelet root, or 0.
+    rootB: the root of the single remaining treelet, the heap LCA of the
+    spanned treelets, or 0 when a whole-tree slot lands in pass B; dead
+    lanes never widen it.  Each result is (n_tiles,) int32.
+    """
+    dev = skey_s.device
+    skey_s = skey_s.to(torch.int64)
+    troots = troots.to(torch.int64)
+    tile_iota = torch.arange(n_tiles, dtype=torch.int64, device=dev)
+    segstart = torch.searchsorted(
+        skey_s, torch.arange(S + 3, dtype=torch.int64, device=dev),
+        right=False)
+    tile0 = skey_s.reshape(n_tiles, chunk)[:, 0]
+    n_live_tot = segstart[S + 1]
+    idx_ll = torch.clamp(torch.minimum((tile_iota + 1) * chunk, n_live_tot)
+                         - 1, 0, npad - 1)
+    tile_ll = skey_s[idx_ll]
+    split = torch.clamp(segstart[torch.clamp_max(tile0 + 1, S + 2)]
+                        - tile_iota * chunk, 1, chunk)
+    rootA = torch.where(tile0 < S, troots[torch.clamp(tile0, 0, S - 1)], 0)
+    second = tile0 + 1
+    wt = (second >= S) | (tile_ll >= S)
+    x = (S - 1) + torch.clamp(second, 0, S - 1)
+    y = (S - 1) + torch.clamp(tile_ll, 0, S - 1)
+    for _ in range(lca_steps):
+        ne = x != y
+        x, y = (torch.where(ne, (x - 1) >> 1, x),
+                torch.where(ne, (y - 1) >> 1, y))
+    rootB = torch.where(wt, 0, x)
+    return (split.to(torch.int32), rootA.to(torch.int32),
+            rootB.to(torch.int32))
+
+
+def _binned_trace(ray: Ray, cbvh, max_t, m: int, any_hit: bool):
+    """Binned traversal loop; returns per-ray (n, 4) [t prim u v] with t the global
+    distance (treelet entry + local t).
+
+    Round r traces the lanes whose r-th nearest treelet entry is still in
+    front of their best hit.  A round with no live lane is skipped; that
+    test is one host sync per round.
+    """
+    _require_heap(cbvh)
+    m = min(m, cbvh.num_treelets)
+    o, d, mt = _flat_rays(ray, max_t)
+    n = o.shape[0]
+    dev = o.device
+    root_lo = cbvh.nodes[0, 0:3]
+    root_hi = cbvh.nodes[0, 3:6]
+    ext = torch.clamp_min(root_hi - root_lo, 1e-9)
+    ent, slot = _treelet_entries(o, d, mt, cbvh.treelet_lo, cbvh.treelet_hi,
+                                 m)
+
+    S = cbvh.num_treelets
+    troots = cbvh.treelet_roots
+    chunk = BINNED_ROWS * 128
+    npad = _round_up(max(n, chunk * INTERLEAVE), chunk * INTERLEAVE)
+    n_tiles = npad // chunk
+    lca_steps = max(1, int(math.ceil(math.log2(max(S, 2)))) + 1)
+    octant = _octant(d)
+
+    bt = torch.full((n,), FLT_MAX, dtype=torch.float32, device=dev)
+    bp = torch.full((n,), -1.0, dtype=torch.float32, device=dev)
+    bu = torch.zeros((n,), dtype=torch.float32, device=dev)
+    bv = torch.zeros((n,), dtype=torch.float32, device=dev)
+    for r in range(m):
+        ent_r = ent[:, r]
+        slot_r = slot[:, r]
+        cap = torch.minimum(mt, bt)
+        live = torch.isfinite(ent_r) & (ent_r < cap)
+        if any_hit:
+            live = live & (bp < 0.0)
+        if not bool(live.any()):
+            continue
+        ent_c = torch.where(live, ent_r, 0.0)
+        mtp = torch.where(live, cap - ent_c, -1.0)
+
+        # treelet-major (dead last), then octant, then entry-point morton
+        op = o + d * ent_c[:, None]
+        q = torch.clamp((op - root_lo) / ext, 0.0, 1.0)
+        mor = morton3d(q) >> 11          # 19 bits
+        skey = torch.where(live, torch.where(slot_r < 0, S, slot_r), S + 1)
+        key = (skey << 22) | (octant << 19) | mor
+        if npad > n:
+            key = torch.cat([key, torch.full((npad - n,), (S + 1) << 22,
+                                             dtype=key.dtype, device=dev)])
+        key_s, perm = torch.sort(key, stable=True)
+        skey_s = key_s >> 22
+
+        tbl8 = torch.stack([o[:, 0], o[:, 1], o[:, 2], d[:, 0], d[:, 1],
+                            d[:, 2], ent_c, mtp], dim=1)
+        if npad > n:
+            pad_row = torch.tensor([0, 0, 0, 1, 1, 1, 0, -1],
+                                   dtype=torch.float32, device=dev)
+            tbl8 = torch.cat([tbl8, pad_row.expand(npad - n, 8)], dim=0)
+        g8 = tbl8[perm]
+        op_k = g8[:, 0:3] + g8[:, 3:6] * g8[:, 6:7]
+
+        split, rootA, rootB = _two_pass_tile_meta(
+            skey_s, troots, S, n_tiles, chunk, lca_steps, npad)
+        rays = _pack_rays(op_k, g8[:, 3:6], g8[:, 7], npad, npad,
+                          pad_maxt=-1.0)
+        t_t, prim_t, u_t, v_t = cluster_traverse(
+            rays, cbvh.nodes, cbvh.tris, cbvh.num_clusters,
+            cbvh.cluster_size, tile_lanes=chunk, any_hit=any_hit,
+            tile_roots=torch.stack([rootA, rootB]).contiguous(),
+            tile_splits=split.contiguous())
+
+        # un-sort: lane i of the sorted layout is pair perm[i]
+        def unsort(x):
+            out = torch.empty_like(x)
+            out[perm] = x
+            return out[:n]
+
+        t_o, p_o = unsort(t_t), unsort(prim_t)
+        hit_r = live & (p_o >= 0.0)
+        tg = ent_c + t_o
+        upd = hit_r & (tg < bt)
+        bt = torch.where(upd, tg, bt)
+        bp = torch.where(upd, p_o, bp)
+        if not any_hit:
+            bu = torch.where(upd, unsort(u_t), bu)
+            bv = torch.where(upd, unsort(v_t), bv)
+    return torch.stack([bt, bp, bu, bv], dim=1)
+
+
+def binned_closest_hit(ray: Ray, cbvh, mesh, max_t=FLT_MAX,
+                       m: int = BIN_M) -> HitRecord:
+    """Closest hit via treelet binning."""
+    if cbvh.treelet_size <= 0:
+        raise ValueError("binned traversal needs a treelet-built ClusterBVH")
+    return _closest_record(_binned_trace(ray, cbvh, max_t, m, any_hit=False),
+                           ray, mesh)
+
+
+def binned_any_hit(ray: Ray, cbvh, mesh, max_t, m: int = BIN_M) -> HitRecord:
+    """Occlusion query via treelet binning (any pair hit occludes)."""
+    if cbvh.treelet_size <= 0:
+        raise ValueError("binned traversal needs a treelet-built ClusterBVH")
+    return _any_record(_binned_trace(ray, cbvh, max_t, m, any_hit=True),
+                       ray, mesh)

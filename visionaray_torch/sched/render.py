@@ -1,0 +1,163 @@
+"""Frame rendering front end (port of sched/render.py, path tracing only).
+
+Images are (H, W, 4) with row 0 the bottom scanline.  The whole render runs
+under torch.inference_mode(): this forward slice has no autograd.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass
+from typing import Any, Optional
+
+import torch
+
+from visionaray_torch.kernels.params import KernelParams
+from visionaray_torch.kernels.pathtracing import pathtracing_kernel
+from visionaray_torch.ops.sampling import Sampler, as_u32, pcg_hash
+
+SSAA_OFFSETS = {
+    1: [(0.0, 0.0)],
+    2: [(-0.25, -0.25), (0.25, 0.25)],
+    4: [(-0.125, -0.375), (0.375, -0.125), (0.125, 0.375), (-0.375, 0.125)],
+    8: [(-0.4375, 0.0625), (-0.3125, -0.1875), (-0.1875, 0.3125),
+        (-0.0625, -0.4375), (0.0625, 0.4375), (0.1875, -0.3125),
+        (0.3125, 0.1875), (0.4375, -0.0625)],
+}
+
+
+def _ssaa_offsets(spp: int):
+    """Reference tables for 1/2/4/8 samples; an (i/N, radical-inverse-2)
+    lattice otherwise."""
+    if spp in SSAA_OFFSETS:
+        return SSAA_OFFSETS[spp]
+
+    def rad2(i: int) -> float:
+        x, f = 0.0, 0.5
+        while i:
+            x += f * (i & 1)
+            i >>= 1
+            f *= 0.5
+        return x
+
+    return [((i + 0.5) / spp - 0.5, rad2(i) - 0.5) for i in range(spp)]
+
+
+@dataclass
+class RenderTarget:
+    """Color + depth frame buffer."""
+
+    color: Any   # (H, W, 4) f32 linear RGBA
+    depth: Any   # (H, W) f32
+    width: int
+    height: int
+
+
+def _pixel_grid(width, height, device):
+    x = torch.arange(width, dtype=torch.int32, device=device)
+    y = torch.arange(height, dtype=torch.int32, device=device)
+    yy, xx = torch.meshgrid(y, x, indexing="ij")   # (H, W)
+    return xx.reshape(-1), yy.reshape(-1)
+
+
+def _check_algo(algo: str):
+    if algo != "pathtracing":
+        raise NotImplementedError(
+            f"algo={algo!r}: only 'pathtracing' is ported (ROADMAP queue 1, "
+            "item 8)")
+
+
+def render_pixels(params: KernelParams, cam, x, y, width, height,
+                  algo: str, spp: int, pixel_sampler: str,
+                  frame_num, seed: int = 0, nee: bool = False):
+    """Render a flat batch of pixels; returns (color (N, 4), depth (N,))."""
+    _check_algo(algo)
+    with torch.inference_mode():
+        pixel_id = (as_u32(y) * (width & 0xFFFFFFFF) + as_u32(x)) & 0xFFFFFFFF
+        ssaa = torch.tensor(_ssaa_offsets(spp), dtype=torch.float32,
+                            device=x.device)
+        color = torch.zeros(tuple(x.shape) + (4,), dtype=torch.float32,
+                            device=x.device)
+        depth = torch.zeros(tuple(x.shape), dtype=torch.float32,
+                            device=x.device)
+        for s in range(spp):
+            stream = pcg_hash((seed + s * 0x85EBCA6B) & 0xFFFFFFFF)
+            samp = Sampler.seed(0, pixel_id ^ stream.to(x.device),
+                                as_u32(frame_num, x.device))
+            if pixel_sampler in ("jittered", "jittered_blend"):
+                (jx, jy), samp = samp.next_n(2)
+                jitter = torch.stack([jx - 0.5, jy - 0.5], dim=-1)
+            elif pixel_sampler == "ssaa":
+                jitter = ssaa[s].expand(tuple(x.shape) + (2,))
+            else:
+                jitter = None
+            ray = cam.primary_rays(x, y, width, height, jitter)
+            rec = pathtracing_kernel(params, ray, samp, nee=nee)
+            color = color + rec.color
+            depth = depth + torch.where(rec.hit, rec.depth, 0.0)
+        return color / spp, depth / spp
+
+
+def _render_frame(params: KernelParams, cam, width: int, height: int,
+                  algo: str, spp: int, pixel_sampler: str, tile_size: int,
+                  frame_num, seed: int = 0, nee: bool = False):
+    x, y = _pixel_grid(width, height, params.scene.device)
+    n = x.shape[0]
+    if tile_size and n > tile_size:
+        parts = [render_pixels(params, cam, x[i:i + tile_size],
+                               y[i:i + tile_size], width, height, algo, spp,
+                               pixel_sampler, frame_num, seed, nee=nee)
+                 for i in range(0, n, tile_size)]
+        color = torch.cat([p[0] for p in parts])
+        depth = torch.cat([p[1] for p in parts])
+    else:
+        color, depth = render_pixels(params, cam, x, y, width, height, algo,
+                                     spp, pixel_sampler, frame_num, seed,
+                                     nee=nee)
+    return color.reshape(height, width, 4), depth.reshape(height, width)
+
+
+def render(scene, cam, width: int, height: int, algo: str = "pathtracing",
+           spp: int = 1, bounces: Optional[int] = None,
+           epsilon: Optional[float] = None, bg_color=(0.1, 0.4, 1.0, 1.0),
+           ambient: Optional[tuple] = None, pixel_sampler: Optional[str] = None,
+           frame_num: int = 1, seed: int = 0, tile_size: int = 0,
+           rt: Optional[RenderTarget] = None, nee: bool = False,
+           spectral: int = 0, hit_filter=None, boundary=None):
+    """Render one frame on the scene's device; returns a RenderTarget
+    (pass ``rt`` for the progressive blend, alpha = 1/frame_num).
+
+    Defaults as in the JAX package: 10 bounces, ambient 1, jittered_blend,
+    epsilon = max(1e-3, 1e-5 * scene diagonal).  Other algorithms,
+    ``spectral``, ``boundary`` and typed render targets are not ported.
+    """
+    _check_algo(algo)
+    if spectral or (boundary is not None and boundary is not False):
+        raise NotImplementedError("spectral and boundary rendering are not "
+                                  "ported yet")
+    if rt is not None and not isinstance(rt, RenderTarget):
+        raise NotImplementedError("only the float RenderTarget is ported")
+    if bounces is None:
+        bounces = 10
+    if ambient is None:
+        ambient = (1.0, 1.0, 1.0, 1.0)
+    if pixel_sampler is None:
+        pixel_sampler = "jittered_blend"
+    with torch.inference_mode():
+        if epsilon is None:
+            bbox = scene.bbox()
+            diag = float(torch.linalg.norm(bbox.hi - bbox.lo))
+            epsilon = max(1e-3, diag * 1e-5)
+        params = KernelParams.create(
+            scene, num_bounces=bounces, epsilon=epsilon, bg_color=bg_color,
+            ambient_color=ambient, hit_filter=hit_filter)
+        color, depth = _render_frame(params, cam, width, height, algo, spp,
+                                     pixel_sampler, tile_size, frame_num,
+                                     seed, nee=nee)
+        if rt is None:
+            return RenderTarget(color=color, depth=depth, width=width,
+                                height=height)
+        alpha = 1.0 / torch.tensor(float(frame_num), dtype=torch.float32,
+                                   device=color.device)
+        return dataclasses.replace(rt, color=rt.color * (1.0 - alpha) + color * alpha,
+                       depth=rt.depth * (1.0 - alpha) + depth * alpha)
