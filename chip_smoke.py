@@ -22,6 +22,21 @@ Phases, each of which fails the run (non-zero exit) when it fails:
 4. Whole-path check: a small config (sponza_like 4000 triangles, K=8, T=16,
    64x64, 3 bounces, NEE) rendered through the kernel and through the
    plain version, both on the card, compared image to image.
+5. The training step (sched/step.py, bench.py's value_and_grad over the
+   vertices and the albedo) at full width: the 1080p frame of phase 3 in
+   bench.py's one 2^21-lane tile.  One warm step, one step whose forward
+   and backward launches are counted apart (the backward must launch no
+   traversal) and whose peak memory is read, then timed steps.  The loss
+   and both gradients must be finite and the gradients non-zero.
+6. Gradient check: phase 4's configuration at 32x32, loss_and_grads
+   through the kernel and through the plain version on the card, held to
+   the CPU test's tolerance.
+7. The radix-tree form (row 1e): build_cluster_bvh(treelet_size=0) of the
+   260k scene on the card (auto K=32, C=8,115), tables equal to the CPU
+   build; the 1080p frame on it (every bounce coherent on the radix tree),
+   timed as phase 3; its two modes held against the plain version on
+   captured launches as in phase 2.  Then a mesh of 24 triangles (C == 1)
+   rendered at 64x64, and its two modes held the same way.
 
 Output: one line per check, then a JSON line with per-kernel numbers, the
 card's name and power limit, and as the last line
@@ -29,12 +44,14 @@ card's name and power limit, and as the last line
 
     python3 chip_smoke.py --profile [--profile-table=PATH]
 
-adds a torch.profiler breakdown of one more frame: device time by kernel
-group and the device idle share, and with PATH the full operator table.
+adds a torch.profiler breakdown of one more frame and one more training
+step: device time by kernel group and the device idle share, and with
+PATH the full operator tables (the step's in PATH.step).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import subprocess
@@ -45,10 +62,14 @@ import numpy as np
 import torch
 
 import visionaray_torch.ops.traverse as trav
+from visionaray_torch.core.camera import Pinhole
+from visionaray_torch.core.scene import Scene, TriangleMesh
 from visionaray_torch.kernels.params import KernelParams
 from visionaray_torch.ops.cluster_bvh import build_cluster_bvh
+from visionaray_torch.sched import step
 from visionaray_torch.sched.render import _pixel_grid, render_pixels
 from visionaray_torch.scenes.sponza_like import sponza_like_scene
+from visionaray_torch.shading.lights import PointLights
 
 WIDTH, HEIGHT, SPP, BOUNCES = 1920, 1080, 1, 5
 TARGET_TRIS, K, T = 260_000, 32, 128
@@ -62,17 +83,24 @@ MISMATCH_SHARE = 1e-4
 T_RTOL = 1e-6
 # whole-path check: the slice test's tolerance
 IMG_MEAN_ABS, IMG_PIX_TOL, IMG_PIX_SHARE = 1e-4, 1e-3, 0.02
+# gradient check: tests/test_torch_grad.py's tolerance
+LOSS_RTOL, GRAD_REL_L2, GRAD_COS = 1e-5, 1e-3, 0.999
+TIMED_STEPS = 3
 # H100 SXM peaks (NVIDIA data sheet): memory rate and f32 non-tensor rate
 PEAK_BYTES_S, PEAK_F32_S = 3.35e12, 67e12
 FLOP_TRI, FLOP_BOX = 40, 20      # ops of one triangle / one box test
 REPLACES = "visionaray_tpu/ops/pallas/traverse.py:557"
 SOURCE = "visionaray_torch/ops/cuda/traverse.cu"
-MODES = [  # (mode key, kernel name, table row)
+MODES = [  # (mode key, kernel name, table row) of the treelet frame
     ("closest", "traverse_closest", "1"),
     ("binned_closest", "traverse_binned_closest", "1b"),
     ("binned_any", "traverse_binned_any", "1c"),
     ("any", "traverse_any", "1d"),
 ]
+RADIX_MODES = [("radix_closest", "traverse_radix_closest", "1e"),
+               ("radix_any", "traverse_radix_any", "1e")]
+C1_MODES = [("c1_closest", "traverse_c1_closest", "1e (C == 1)"),
+            ("c1_any", "traverse_c1_any", "1e (C == 1)")]
 
 
 def log(*a):
@@ -111,9 +139,9 @@ class LaunchRecorder:
 
     def __call__(self, rays, nodes, tris, num_clusters, cluster_size,
                  tile_lanes, any_hit=False, tile_roots=None,
-                 tile_splits=None, counters=None):
-        mode = ("binned_" if tile_roots is not None else "") + \
-            ("any" if any_hit else "closest")
+                 tile_splits=None, counters=None, heap=True, depth=None):
+        mode = trav.launch_mode(heap, num_clusters, tile_roots is not None,
+                                any_hit)
         if mode not in self.first:
             self.first[mode] = dict(
                 rays=rays.clone(), tile_lanes=tile_lanes, any_hit=any_hit,
@@ -121,7 +149,40 @@ class LaunchRecorder:
                 splits=None if tile_splits is None else tile_splits.clone())
         return self.fn(rays, nodes, tris, num_clusters, cluster_size,
                        tile_lanes, any_hit, tile_roots, tile_splits,
-                       counters)
+                       counters, heap=heap, depth=depth)
+
+
+@contextlib.contextmanager
+def recorded(rec):
+    """cluster_traverse replaced by the LaunchRecorder ``rec``."""
+    trav.cluster_traverse = rec
+    try:
+        yield rec
+    finally:
+        trav.cluster_traverse = rec.fn
+
+
+def plain_on_card(rays, nodes, tris, num_clusters, cluster_size,
+                  tile_lanes, any_hit=False, tile_roots=None,
+                  tile_splits=None, counters=None, heap=True, depth=None):
+    """cluster_traverse's contract through the plain version, on the card."""
+    if tile_roots is None:
+        tile_roots, tile_splits = trav._default_tiles(
+            rays.shape[0], tile_lanes, rays.device)
+    return trav.traverse_plain(rays, nodes, tris, num_clusters,
+                               cluster_size, tile_lanes, any_hit,
+                               tile_roots, tile_splits, heap=heap)
+
+
+@contextlib.contextmanager
+def plain_traversal():
+    """Every traversal through the plain version while inside."""
+    kernel_fn = trav.cluster_traverse
+    trav.cluster_traverse = plain_on_card
+    try:
+        yield
+    finally:
+        trav.cluster_traverse = kernel_fn
 
 
 def full_tiles(launch):
@@ -146,8 +207,9 @@ def compare_tiles(rays, roots, splits, tl):
     mixed = torch.nonzero(live.any(1) & ~live.all(1)).reshape(-1).tolist()
     picked += mixed[-1:]
     mid = n_tiles // 2
-    while len(set(picked)) * tl < COMPARE_LANES:
-        picked.append(mid)
+    while len(set(picked)) * tl < COMPARE_LANES and \
+            len(set(picked)) < n_tiles:
+        picked.append(mid % n_tiles)
         mid += 1
     return sorted(set(picked)), len(straddle), len(mixed)
 
@@ -169,11 +231,12 @@ def check_mode(key, name, row, launch, bvh, launches):
         return trav.cluster_traverse(
             r, bvh.nodes, bvh.tris, C, Kc, tile_lanes=tl, any_hit=any_hit,
             tile_roots=ro if binned else None,
-            tile_splits=sp if binned else None, counters=counters)
+            tile_splits=sp if binned else None, counters=counters,
+            heap=bvh.heap, depth=bvh.depth)
 
     def plain(r, ro, sp):
         return trav.traverse_plain(r, bvh.nodes, bvh.tris, C, Kc, tl,
-                                   any_hit, ro, sp)
+                                   any_hit, ro, sp, heap=bvh.heap)
 
     # correctness on a subset of tiles
     tiles, n_straddle, n_mixed = compare_tiles(rays, roots, splits, tl)
@@ -229,7 +292,8 @@ def check_mode(key, name, row, launch, bvh, launches):
         f"{'OK' if ok else 'FAIL'}")
     entry = {
         "name": name, "route": "cuda", "source": SOURCE,
-        "replaces": REPLACES, "mode": row, "launches": launches.get(key, 0),
+        "replaces": REPLACES, "mode": row, "mode_key": key,
+        "launches": launches.get(key, 0),
         "max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms,
         "bound_ms": max(t_bytes, t_ops),
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
@@ -257,14 +321,20 @@ def swizzled_pixels(device):
     return x, y
 
 
-def whole_path_check(device):
-    """Small config through the kernel and through the plain version."""
+def small_config(device):
+    """sponza_like 4000 (4,804 triangles), K=8, T=16, 3 bounces."""
     scene, cam = sponza_like_scene(target_tris=4000, device=device)
     scene.bvh = build_cluster_bvh(scene.mesh, cluster_size=8,
                                   treelet_size=16)
     params = KernelParams.create(scene, num_bounces=3, epsilon=1e-3,
                                  bg_color=(0.2, 0.3, 0.5, 1.0),
                                  ambient_color=(1.0, 1.0, 1.0, 1.0))
+    return params, cam
+
+
+def whole_path_check(device):
+    """Small config through the kernel and through the plain version."""
+    params, cam = small_config(device)
     x, y = _pixel_grid(64, 64, device)
 
     def frame():
@@ -272,23 +342,8 @@ def whole_path_check(device):
                              "jittered_blend", 1, nee=True)[0]
 
     img_k = frame()
-    kernel_fn = trav.cluster_traverse
-
-    def plain_on_card(rays, nodes, tris, num_clusters, cluster_size,
-                      tile_lanes, any_hit=False, tile_roots=None,
-                      tile_splits=None, counters=None):
-        if tile_roots is None:
-            tile_roots, tile_splits = trav._default_tiles(
-                rays.shape[0], tile_lanes, rays.device)
-        return trav.traverse_plain(rays, nodes, tris, num_clusters,
-                                   cluster_size, tile_lanes, any_hit,
-                                   tile_roots, tile_splits)
-
-    trav.cluster_traverse = plain_on_card
-    try:
+    with plain_traversal():
         img_p = frame()
-    finally:
-        trav.cluster_traverse = kernel_fn
     diff = (img_k - img_p).abs()
     mean_abs = float(diff.mean())
     share = float((diff.amax(-1) > IMG_PIX_TOL).float().mean())
@@ -300,10 +355,176 @@ def whole_path_check(device):
     return ok
 
 
-def profile_frame(run, table_path=None):
-    """``--profile``: torch.profiler over one frame; prints the device busy
-    share and the top kernels by device time.  ``--profile-table=PATH``
-    also writes the profiler's full operator table to PATH."""
+def grad_stats(got, ref):
+    """(relative L2 error, cosine) of two gradients."""
+    got, ref = got.double(), ref.double()
+    rel = float((got - ref).norm() / ref.norm())
+    cos = float((got * ref).sum() / (got.norm() * ref.norm()))
+    return rel, cos
+
+
+def training_step_phase(params, cam, x, y):
+    """Phase 5: bench.py's training step at full width."""
+    verts = params.scene.mesh.vertices
+    cd = params.scene.materials.cd
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    step.loss_and_grads(verts, cd, 1, params, cam, x, y, nee=True)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+
+    # the counted step: forward and backward apart, peak memory
+    torch.cuda.reset_peak_memory_stats()
+    with torch.enable_grad():
+        v = verts.detach().requires_grad_()
+        c = cd.detach().requires_grad_()
+        trav.reset_launch_counts()
+        t0 = time.perf_counter()
+        loss = step.frame_loss(v, c, 2, params, cam, x, y, nee=True)
+        torch.cuda.synchronize()
+        fwd_s = time.perf_counter() - t0
+        fwd = dict(trav.LAUNCHES)
+        trav.reset_launch_counts()
+        t0 = time.perf_counter()
+        g_v, g_c = torch.autograd.grad(loss, (v, c))
+        torch.cuda.synchronize()
+        bwd_s = time.perf_counter() - t0
+        bwd = dict(trav.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+
+    times = []
+    for i in range(TIMED_STEPS):
+        t0 = time.perf_counter()
+        loss_t, (gv_t, gc_t) = step.loss_and_grads(verts, cd, 3 + i, params,
+                                                   cam, x, y, nee=True)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    step_s = sum(times) / len(times)
+    rays = WIDTH * HEIGHT * SPP * BOUNCES * 2
+    finite = all(bool(torch.isfinite(t).all())
+                 for t in (loss, g_v, g_c, loss_t, gv_t, gc_t))
+    nonzero = float(g_v.abs().sum()) > 0 and float(g_c.abs().sum()) > 0
+    bwd_launches = sum(bwd.values())
+    ok = (finite and nonzero and bwd_launches == 0
+          and all(fwd[k] > 0 for k, _, _ in MODES))
+    lanes = -(-x.shape[0] // step.TILE) * step.TILE
+    log(f"training step 1920x1080 spp=1 bounces=5 nee ({lanes} lanes, "
+        f"{lanes - x.shape[0]} padding): step_s={step_s:.4f} (steps "
+        f"{', '.join(f'{t:.4f}' for t in times)}) "
+        f"mrays_per_s={rays / step_s / 1e6:.3f} warm_s={warm_s:.3f} "
+        f"counted step forward_s={fwd_s:.4f} backward_s={bwd_s:.4f} "
+        f"peak_mem_bytes={peak} loss={float(loss.detach()):.7f} "
+        f"|g_verts|={float(g_v.norm()):.6e} |g_cd|={float(g_c.norm()):.6e} "
+        f"finite={finite} nonzero={nonzero}")
+    log(f"  forward launches={fwd} backward launches={bwd} "
+        f"{'OK' if ok else 'FAIL'}")
+    return ok, dict(step_s=step_s, mrays_per_s=rays / step_s / 1e6,
+                    step_times=times, forward_s=fwd_s, backward_s=bwd_s,
+                    peak_mem_bytes=peak, loss=float(loss.detach()),
+                    forward_launches=fwd, backward_launches=bwd_launches)
+
+
+def grad_check(device):
+    """Phase 6: loss_and_grads through the kernel and through the plain
+    version at 32x32 on phase 4's configuration."""
+    params, cam = small_config(device)
+    x, y = _pixel_grid(32, 32, device)
+    verts = params.scene.mesh.vertices
+    cd = params.scene.materials.cd
+
+    def run():
+        return step.loss_and_grads(verts, cd, 1, params, cam, x, y, nee=True,
+                                   width=32, height=32, tile=32 * 32)
+
+    loss_k, grads_k = run()
+    with plain_traversal():
+        loss_p, grads_p = run()
+    loss_rel = abs(float(loss_k) - float(loss_p)) / abs(float(loss_p))
+    stats = [grad_stats(a, b) for a, b in zip(grads_k, grads_p)]
+    ok = (loss_rel <= LOSS_RTOL and all(
+        rel <= GRAD_REL_L2 and cos >= GRAD_COS for rel, cos in stats)
+        and all(bool(torch.isfinite(g).all()) for g in grads_k))
+    log(f"gradient check 32x32 kernel vs plain: loss_rel={loss_rel:.3e} "
+        f"g_verts rel_l2={stats[0][0]:.3e} cos={stats[0][1]:.9f} "
+        f"g_cd rel_l2={stats[1][0]:.3e} cos={stats[1][1]:.9f} "
+        f"{'OK' if ok else 'FAIL'}")
+    return ok
+
+
+def timed_frames(frame):
+    """Warm frame with the first launch of each mode recorded, a counted
+    frame (counts reset just before), then more timed frames."""
+    rec = LaunchRecorder(trav.cluster_traverse)
+    with recorded(rec):
+        t0 = time.perf_counter()
+        frame(1)
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t0
+    trav.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    color, depth = frame(2)
+    torch.cuda.synchronize()
+    times = [time.perf_counter() - t0]
+    launches = dict(trav.LAUNCHES)
+    for i in range(TIMED_FRAMES - 1):
+        t0 = time.perf_counter()
+        frame(3 + i)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return rec, launches, warm_s, times, color, depth
+
+
+def radix_phase(scene, cam, cpu_mesh, dev):
+    """Phase 7a set-up: the radix tree of the 260k scene, checked against
+    the CPU build, and its 1080p frame."""
+    t0 = time.perf_counter()
+    rbvh = build_cluster_bvh(scene.mesh, treelet_size=0)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    cpu_bvh = build_cluster_bvh(cpu_mesh, treelet_size=0)
+    same = (all(torch.equal(getattr(rbvh, k).cpu(), getattr(cpu_bvh, k))
+                for k in ("nodes", "tris"))
+            and rbvh.depth == cpu_bvh.depth)
+    shape_ok = (rbvh.cluster_size, rbvh.num_clusters,
+                rbvh.nodes.shape[0], rbvh.heap) == (32, 8115, 16229, False)
+    log(f"radix tree: bvh_build_s={build_s:.3f} C={rbvh.num_clusters} "
+        f"K={rbvh.cluster_size} nodes={rbvh.nodes.shape[0]} "
+        f"depth={rbvh.depth} tables_equal_to_cpu_build={same}")
+    params = KernelParams.create(
+        dataclasses.replace(scene, bvh=rbvh), num_bounces=BOUNCES,
+        epsilon=1e-3, bg_color=(0.2, 0.3, 0.5, 1.0),
+        ambient_color=(1.0, 1.0, 1.0, 1.0))
+    x, y = swizzled_pixels(dev)
+
+    def frame(num):
+        return render_pixels(params, cam, x, y, WIDTH, HEIGHT,
+                             "pathtracing", SPP, "jittered_blend", num,
+                             nee=True)
+
+    return rbvh, frame, same and shape_ok, build_s
+
+
+def c1_scene(device):
+    """24 triangles in one cluster (K=32 gives C == 1), lit by a point
+    light, seen by a camera in front: phase 7b."""
+    rng = np.random.default_rng(3)
+    verts = rng.uniform(-1, 1, (72, 3)).astype(np.float32)
+    faces = np.arange(72, dtype=np.int32).reshape(24, 3)
+    mesh = TriangleMesh.create(verts, faces, device=device)
+    scene = Scene.create(
+        mesh=mesh, lights=PointLights.create((2.0, 3.0, 4.0),
+                                             device=device),
+        bvh=build_cluster_bvh(mesh, cluster_size=32), device=device)
+    cam = Pinhole.create((0.0, 0.5, 4.0), (0.0, 0.0, 0.0), device=device)
+    return scene, cam
+
+
+def profile_run(run, label, table_path=None):
+    """``--profile``: torch.profiler over one ``run()`` (a frame or a
+    training step); prints the device busy share and the top kernels by
+    device time.  ``--profile-table=PATH`` also writes the profiler's full
+    operator table to PATH."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -335,7 +556,7 @@ def profile_frame(run, table_path=None):
                   if any(s in e.key for s in keys)), "elementwise_other")
         sums[g] += dev_us(e) / 1e6
     busy_s = sum(sums.values())
-    log(f"profile: frame wall_s={wall_s:.4f} device_busy_s={busy_s:.4f} "
+    log(f"profile: {label} wall_s={wall_s:.4f} device_busy_s={busy_s:.4f} "
         f"idle_share={1 - busy_s / wall_s:.4f} kernels_launched="
         f"{sum(e.count for e in dev_rows)} | "
         + " ".join(f"{k}={v:.4f}" for k, v in sums.items()))
@@ -371,7 +592,22 @@ def main() -> int:
             log("  nvcc: " + line.strip())
 
     all_ok = True
-    with torch.inference_mode():
+    entries = []
+
+    def check_modes(modes, rec, bvh, launches):
+        ok = True
+        for key, name, row in modes:
+            if key not in rec.first:
+                log(f"FAIL: mode {key} was never launched by its frame")
+                ok = False
+                continue
+            good, entry = check_mode(key, name, row, rec.first[key], bvh,
+                                     launches)
+            ok &= good
+            entries.append(entry)
+        return ok
+
+    with torch.no_grad():
         # ---- phase 3 set-up: scene and BVH on the card
         t0 = time.perf_counter()
         scene, cam = sponza_like_scene(target_tris=TARGET_TRIS, device=dev)
@@ -397,6 +633,7 @@ def main() -> int:
             f"bvh_build_s={bvh_build_s:.3f} C={bvh.num_clusters} "
             f"K={bvh.cluster_size} S={bvh.num_treelets} "
             f"T={bvh.treelet_size} tables_equal_to_cpu_build={same}")
+        all_ok &= same
         params = KernelParams.create(
             scene, num_bounces=BOUNCES, epsilon=1e-3,
             bg_color=(0.2, 0.3, 0.5, 1.0), ambient_color=(1.0, 1.0, 1.0, 1.0))
@@ -407,31 +644,9 @@ def main() -> int:
                                  "pathtracing", SPP, "jittered_blend", num,
                                  nee=True)
 
-        # warm frame, recording the first launch of every mode
-        rec = LaunchRecorder(trav.cluster_traverse)
-        trav.cluster_traverse = rec
-        try:
-            t0 = time.perf_counter()
-            frame(1)
-            torch.cuda.synchronize()
-            warm_s = time.perf_counter() - t0
-        finally:
-            trav.cluster_traverse = rec.fn
+        # ---- phase 3: the forward frame, counts reset just before
+        rec, launches, warm_s, times, color, depth = timed_frames(frame)
         log(f"warm frame: {warm_s:.3f} s, modes seen: {sorted(rec.first)}")
-
-        # ---- phase 3: the main path, counts reset just before
-        trav.reset_launch_counts()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        color, depth = frame(2)
-        torch.cuda.synchronize()
-        times = [time.perf_counter() - t0]
-        launches = dict(trav.LAUNCHES)
-        for i in range(TIMED_FRAMES - 1):
-            t0 = time.perf_counter()
-            frame(3 + i)
-            torch.cuda.synchronize()
-            times.append(time.perf_counter() - t0)
         frame_s = sum(times) / len(times)
         rays = WIDTH * HEIGHT * SPP * BOUNCES * 2
         hit_frac = float((depth > 0).float().mean())
@@ -451,30 +666,90 @@ def main() -> int:
         all_ok &= path_ok
 
         # ---- phase 2: kernel vs plain, per mode, on captured launches
-        entries = []
-        for key, name, row in MODES:
-            if key not in rec.first:
-                log(f"FAIL: mode {key} was never launched by the frame")
-                all_ok = False
-                continue
-            ok, entry = check_mode(key, name, row, rec.first[key], bvh,
-                                   launches)
-            all_ok &= ok
-            entries.append(entry)
+        all_ok &= check_modes(MODES, rec, bvh, launches)
         del rec
 
         # ---- phase 4: whole-path check
         all_ok &= whole_path_check(dev)
 
-        if "--profile" in sys.argv[1:]:
-            table = [a.split("=", 1)[1] for a in sys.argv[1:]
-                     if a.startswith("--profile-table=")]
-            profile_frame(lambda: frame(TIMED_FRAMES + 2),
-                          table[0] if table else None)
+    # ---- phase 5: the training step at full width
+    step_ok, step_info = training_step_phase(params, cam, x, y)
+    all_ok &= step_ok
+    for e in entries:
+        e["launches_training_step"] = step_info["forward_launches"].get(
+            e["mode_key"], 0)
+
+    # ---- phase 6: kernel vs plain gradients at 32x32
+    all_ok &= grad_check(dev)
+
+    with torch.no_grad():
+        # ---- phase 7a: the radix tree of the 260k scene
+        rbvh, rframe, tables_ok, rbuild_s = radix_phase(scene, cam,
+                                                        cpu_mesh, dev)
+        all_ok &= tables_ok
+        rrec, rlaunches, rwarm_s, rtimes, rcolor, rdepth = \
+            timed_frames(rframe)
+        rframe_s = sum(rtimes) / len(rtimes)
+        rfinite = bool(torch.isfinite(rcolor).all())
+        rstd = float(rcolor[:, :3].std())
+        rhit = float((rdepth > 0).float().mean())
+        radix_ok = (rfinite and rstd > 0 and rhit > 0.5
+                    and all(rlaunches[k] > 0 for k, _, _ in RADIX_MODES)
+                    and sum(rlaunches.values()) == sum(
+                        rlaunches[k] for k, _, _ in RADIX_MODES))
+        log(f"radix frame 1920x1080 spp=1 bounces=5 nee: "
+            f"frame_s={rframe_s:.4f} (frames "
+            f"{', '.join(f'{t:.4f}' for t in rtimes)}) warm_s={rwarm_s:.3f} "
+            f"mrays_per_s={rays / rframe_s / 1e6:.3f} launches={rlaunches} "
+            f"hit_fraction={rhit:.4f} image_mean="
+            f"{float(rcolor[:, :3].mean()):.6f} image_std={rstd:.6f} "
+            f"finite={rfinite} {'OK' if radix_ok else 'FAIL'}")
+        all_ok &= radix_ok
+        all_ok &= check_modes(RADIX_MODES, rrec, rbvh, rlaunches)
+        del rrec
+
+        # ---- phase 7b: a single-cluster tree (C == 1)
+        c1, c1_cam = c1_scene(dev)
+        c1_params = KernelParams.create(
+            c1, num_bounces=2, epsilon=1e-3, bg_color=(0.2, 0.3, 0.5, 1.0),
+            ambient_color=(1.0, 1.0, 1.0, 1.0))
+        cx, cy = _pixel_grid(64, 64, dev)
+
+        def c1_frame(num):
+            return render_pixels(c1_params, c1_cam, cx, cy, 64, 64,
+                                 "pathtracing", 1, "jittered_blend", num,
+                                 nee=True)
+
+        crec, claunches, _, _, ccolor, cdepth = timed_frames(c1_frame)
+        c1_ok = (c1.bvh.num_clusters == 1 and bool(
+            torch.isfinite(ccolor).all()) and float(ccolor.std()) > 0
+            and all(claunches[k] > 0 for k, _, _ in C1_MODES))
+        log(f"C == 1 frame 64x64 bounces=2 nee: tris={c1.num_triangles} "
+            f"C={c1.bvh.num_clusters} launches={claunches} hit_fraction="
+            f"{float((cdepth > 0).float().mean()):.4f} "
+            f"{'OK' if c1_ok else 'FAIL'}")
+        all_ok &= c1_ok
+        all_ok &= check_modes(C1_MODES, crec, c1.bvh, claunches)
+        del crec
+
+    if "--profile" in sys.argv[1:]:
+        table = [a.split("=", 1)[1] for a in sys.argv[1:]
+                 if a.startswith("--profile-table=")]
+        with torch.no_grad():
+            profile_run(lambda: frame(TIMED_FRAMES + 2), "frame",
+                        table[0] if table else None)
+            profile_run(lambda: rframe(TIMED_FRAMES + 2), "radix frame")
+        profile_run(lambda: step.loss_and_grads(
+            params.scene.mesh.vertices, params.scene.materials.cd,
+            TIMED_STEPS + 3, params, cam, x, y, nee=True), "training step",
+            table[0] + ".step" if table else None)
 
     log(json.dumps({"kernels": entries, "frame_s": frame_s,
                     "bvh_build_s": bvh_build_s,
                     "mrays_per_s": rays / frame_s / 1e6,
+                    "training_step": step_info,
+                    "radix_frame_s": rframe_s,
+                    "radix_bvh_build_s": rbuild_s,
                     "build_s": info["seconds"]}))
     log(f"card: {smi}")
     if not all_ok:

@@ -15,6 +15,7 @@ from visionaray_tpu.scenes import sponza_like as jsponza
 from visionaray_torch import convert
 from visionaray_torch.core.scene import TriangleMesh
 from visionaray_torch.ops import cluster_bvh as tcb
+from visionaray_torch.ops import traverse as trav
 from visionaray_torch.ops.lbvh import refit, triangle_aabbs
 from visionaray_torch.scenes import sponza_like as tsponza
 
@@ -135,11 +136,22 @@ def test_refit_matches_heap_levels():
 
 
 def test_unported_builds_raise():
+    """The radix builds (row 1e) are ported: treelet_size=0 and a treelet
+    build of fewer than two treelets give the JAX build's radix tree.  What
+    stays unported is row 1f, refused by the kernel wrapper."""
     verts, faces = random_triangles(40, seed=1)
-    _, tm = _meshes(verts, faces)
-    with pytest.raises(NotImplementedError, match="1e"):
-        tcb.build_cluster_bvh(tm, cluster_size=8, treelet_size=0)
-    with pytest.raises(NotImplementedError, match="1e"):
-        tcb.build_cluster_bvh(tm, cluster_size=8, treelet_size=8)  # S = 1
+    jm, tm = _meshes(verts, faces)
+    for T in (0, 8):   # T = 8: 8 clusters make S = 1 treelet
+        tb = tcb.build_cluster_bvh(tm, cluster_size=8, treelet_size=T)
+        jb = jcb.build_cluster_bvh(jm, cluster_size=8, treelet_size=T)
+        assert (tb.num_clusters, tb.heap, tb.treelet_size) == (5, False, 0)
+        for k in ("nodes", "tris"):
+            np.testing.assert_array_equal(getattr(tb, k).numpy(),
+                                          np.asarray(getattr(jb, k)))
+    rays = torch.zeros((4096, 8))
+    with pytest.raises(NotImplementedError, match="1f"):
+        trav.cluster_traverse(rays, tb.nodes, tb.tris, tb.num_clusters,
+                              tb.cluster_size, 4096, heap=False,
+                              depth=tb.depth, fanout=8)
     assert tcb.pick_cluster_size(259_656) == jcb.pick_cluster_size(259_656)
     assert tcb.pick_cluster_size(10**6) == jcb.pick_cluster_size(10**6)

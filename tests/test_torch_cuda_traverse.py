@@ -17,6 +17,7 @@ import numpy as np
 import pytest
 import torch
 
+from visionaray_torch.core.scene import TriangleMesh
 from visionaray_torch.core.types import Ray
 from visionaray_torch.ops import traverse as trav
 from visionaray_torch.ops.cluster_bvh import build_cluster_bvh
@@ -108,6 +109,56 @@ def test_binned_rounds_match_plain(scene, any_hit, monkeypatch):
     with torch.inference_mode():
         trav._binned_trace(ray, bvh, mt, 3, any_hit=any_hit)
     assert len(calls) >= 1 and sum(calls) >= 1
+
+
+def _c1_case(device):
+    """A mesh of 24 triangles in one cluster (C == 1) and 20000 rays aimed
+    at random points of its box."""
+    rng = np.random.default_rng(3)
+    verts = rng.uniform(-1, 1, (72, 3)).astype(np.float32)
+    faces = np.arange(72, dtype=np.int32).reshape(24, 3)
+    mesh = TriangleMesh.create(verts, faces, device=device)
+    o = rng.uniform(-3, 3, (20000, 3))
+    d = rng.uniform(-1, 1, (20000, 3)) - o
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    return (build_cluster_bvh(mesh, cluster_size=32),
+            Ray(torch.as_tensor(o, dtype=torch.float32, device=device),
+                torch.as_tensor(d, dtype=torch.float32, device=device)))
+
+
+@pytest.mark.parametrize("any_hit", [False, True])
+@pytest.mark.parametrize("kind", ["radix", "c1"])
+def test_radix_modes_match_plain(scene, cuda, kind, any_hit):
+    """Row 1e: the radix tree (children from the kids columns) and the
+    single-cluster tree, from node 0."""
+    if kind == "radix":
+        s, ray = scene
+        with torch.inference_mode():
+            bvh = build_cluster_bvh(s.mesh, cluster_size=16)
+        assert bvh.num_clusters > 1 and not bvh.heap
+    else:
+        with torch.inference_mode():
+            bvh, ray = _c1_case(cuda)
+        assert bvh.num_clusters == 1 and bvh.depth == 0
+    n = ray.ori.shape[0]
+    mt = torch.full((n,), 1e30, device=cuda)
+    mt[::7] = -1.0
+    npad = trav._round_up(n, 8192)
+    rays = trav._pack_rays(ray.ori, ray.dir, mt, n, npad, pad_maxt=-1.0)
+    mode = trav.launch_mode(False, bvh.num_clusters, False, any_hit)
+    assert mode == ("c1_" if kind == "c1" else "radix_") + (
+        "any" if any_hit else "closest")
+    before = trav.LAUNCHES[mode]
+    got = trav.cluster_traverse(rays, bvh.nodes, bvh.tris, bvh.num_clusters,
+                                bvh.cluster_size, tile_lanes=4096,
+                                any_hit=any_hit, heap=False,
+                                depth=bvh.depth)
+    assert trav.LAUNCHES[mode] == before + 1
+    roots, splits = trav._default_tiles(npad, 4096, rays.device)
+    ref = trav.traverse_plain(rays, bvh.nodes, bvh.tris, bvh.num_clusters,
+                              bvh.cluster_size, 4096, any_hit, roots, splits,
+                              heap=False)
+    _check(got, ref, rays, any_hit)
 
 
 def test_wrapper_rejects_bad_inputs(scene):

@@ -19,6 +19,7 @@ from visionaray_torch.core.camera import Pinhole
 from visionaray_torch.core.scene import Planes, Scene, Spheres, TriangleMesh
 from visionaray_torch.device import resolve_device
 from visionaray_torch.ops.cluster_bvh import ClusterBVH
+from visionaray_torch.ops.lbvh import tree_depth
 from visionaray_torch.shading.lights import AreaLights, PointLights, SpotLights
 from visionaray_torch.shading.materials import Materials
 
@@ -73,9 +74,13 @@ def cluster_bvh_from_arrays(d: dict, device="cuda") -> ClusterBVH:
     static = ("num_clusters", "cluster_size", "treelet_size", "num_treelets",
               "heap", "half_boxes")
     bvh = _build(ClusterBVH, d, resolve_device(device), static=static)
-    return dataclasses.replace(
+    bvh = dataclasses.replace(
         bvh, **{k: (bool(getattr(bvh, k)) if k in ("heap", "half_boxes")
                     else int(getattr(bvh, k))) for k in static})
+    # the JAX ClusterBVH carries no depth: read it off the kids columns
+    C = bvh.num_clusters
+    kids = bvh.nodes[: C - 1, 6:8].to(torch.int64)
+    return dataclasses.replace(bvh, depth=tree_depth(kids[:, 0], kids[:, 1]))
 
 
 def scene_from_arrays(mesh=None, materials=None, lights=None, spheres=None,

@@ -1,12 +1,20 @@
 """Iterative path tracing with lane masks and next-event estimation (port
-of kernels/pathtracing.py, forward only).
+of kernels/pathtracing.py).
 
 The bounce loop is a Python loop; on a treelet-built ClusterBVH bounce 0
 (coherent camera rays and their shadow rays) traces the whole tree and
-bounces 1.. trace treelet-binned.  Retired lanes carry max_t = -1 and never
-enter a traversal tile.  NEE shadow segments are traced from the light end,
-through the binned path after bounce 0: the JAX package's
-VSNRAY_SHADOW_REVERSED and VSNRAY_SHADOW_BINNED defaults, fixed here.
+bounces 1.. trace treelet-binned; any other tree traces every bounce
+coherently.  Retired lanes carry max_t = -1 and never enter a traversal
+tile.  NEE shadow segments are traced from the light end, through the
+binned path after bounce 0: the JAX package's VSNRAY_SHADOW_REVERSED and
+VSNRAY_SHADOW_BINNED defaults, fixed here.
+
+With autograd on, each bounce runs under a non-reentrant checkpoint: the
+backward keeps only the bounce's carry and its traversal outputs (a
+``TraceTape`` per bounce) and recomputes the rest of the body -- gathers,
+shading, light sampling -- replaying the recorded traversals, so no kernel
+launches in backward (JAX: jax.checkpoint with
+save_only_these_names("traced_hits")).
 """
 
 from __future__ import annotations
@@ -14,10 +22,12 @@ from __future__ import annotations
 import math
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from visionaray_torch.core.types import FLT_MAX, Ray, ResultRecord
 from visionaray_torch.core.vecmath import faceforward, length
 from visionaray_torch.kernels.params import KernelParams
+from visionaray_torch.ops import traverse
 from visionaray_torch.ops.sampling import Sampler
 from visionaray_torch.ops.trace import any_hit, closest_hit
 from visionaray_torch.shading.lights import AreaLights, light_groups
@@ -94,6 +104,19 @@ def scene_tracer(params: KernelParams, binned: bool):
     return trace_closest, trace_any
 
 
+def _checkpointed(body):
+    """``body`` under a checkpoint whose recompute replays the traversals
+    recorded in its forward.  The sampler is counter-based, so no RNG
+    state is kept."""
+    def run(*args):
+        tape = traverse.TraceTape()
+        return checkpoint(
+            body, *args, use_reentrant=False, preserve_rng_state=False,
+            context_fn=lambda: (traverse.recording(tape),
+                                traverse.replaying(tape)))
+    return run
+
+
 def pathtrace_loop(ray: Ray, sampler: Sampler, *, num_bounces: int,
                    tracer, tracer0=None, lights, nc: int, amb3, bg_color,
                    eps, nee: bool) -> ResultRecord:
@@ -102,16 +125,10 @@ def pathtrace_loop(ray: Ray, sampler: Sampler, *, num_bounces: int,
     batch = ray.batch_shape
     dev = ray.dir.device
     amb3 = torch.as_tensor(amb3, dtype=torch.float32, device=dev)
-    active = torch.ones(batch, dtype=torch.bool, device=dev)
-    dst = torch.ones(batch + (nc,), dtype=torch.float32, device=dev)
-    acc = torch.zeros(batch + (nc,), dtype=torch.float32, device=dev)
-    first_hit = torch.zeros(batch, dtype=torch.bool, device=dev)
-    first_t = torch.zeros(batch, dtype=torch.float32, device=dev)
-    prev_delta = torch.zeros(batch, dtype=torch.bool, device=dev)
 
-    for bounce in range(num_bounces):
-        trace_closest, trace_any = (
-            tracer0 if (tracer0 is not None and bounce == 0) else tracer)
+    def bounce_body(tr, bounce, ray, sampler, active, dst, acc, first_hit,
+                    first_t, prev_delta):
+        trace_closest, trace_any = tr
         hit_rec, surf = trace_closest(ray, torch.where(active, FLT_MAX, -1.0))
 
         exited = active & ~hit_rec.hit
@@ -165,6 +182,22 @@ def pathtrace_loop(ray: Ray, sampler: Sampler, *, num_bounces: int,
         isect_pos = ray.at(torch.where(hit_rec.hit, hit_rec.t, 1.0))
         ray = Ray(ori=isect_pos + refl_dir * eps, dir=refl_dir)
         prev_delta = active & surf.materials.is_specular()
+        return (ray, sampler, active, dst, acc, first_hit, first_t,
+                prev_delta)
+
+    step = _checkpointed(bounce_body) if torch.is_grad_enabled() \
+        else bounce_body
+    carry = (ray, sampler,
+             torch.ones(batch, dtype=torch.bool, device=dev),
+             torch.ones(batch + (nc,), dtype=torch.float32, device=dev),
+             torch.zeros(batch + (nc,), dtype=torch.float32, device=dev),
+             torch.zeros(batch, dtype=torch.bool, device=dev),
+             torch.zeros(batch, dtype=torch.float32, device=dev),
+             torch.zeros(batch, dtype=torch.bool, device=dev))
+    for bounce in range(num_bounces):
+        tr = tracer0 if (tracer0 is not None and bounce == 0) else tracer
+        carry = step(tr, bounce, *carry)
+    _, _, active, dst, acc, first_hit, first_t, _ = carry
 
     # paths still alive at loop end terminate to black
     out = acc if nee else torch.where(active[..., None], 0.0, dst)

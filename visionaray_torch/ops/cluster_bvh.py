@@ -1,14 +1,21 @@
 """Cluster BVH build (port of ops/pallas/cluster_bvh.py), same table layout.
 
-Triangles are kd-sorted into C = 2^L clusters of K; the top tree is a
-complete binary heap over the clusters:
+Two builds, both with the unified node layout of the kernel:
+
+- the kd build (``treelet_size`` T > 0): triangles kd-sorted into C = 2^L
+  clusters of K; the top tree is a complete binary heap over the clusters,
+  children of i at 2i+1 / 2i+2, treelet s (T consecutive clusters) the
+  subtree at row (S-1)+s;
+- the radix build (``treelet_size`` 0, or fewer than two treelets): prims
+  morton-sorted into C = ceil(F/K) clusters, clusters sorted by their own
+  codes, and a Karras'12 radix tree over them; the kernel reads the
+  children from the kids columns.  C == 1 is a single leaf.
 
   nodes[n, c], c in 0..7 = [lo.x lo.y lo.z hi.x hi.y hi.z left right]
-    internal nodes [0, C-1), children of i at 2i+1 / 2i+2 (also stored as
-    float values), leaf of cluster c at row (C-1)+c
+    internal nodes [0, C-1) with their children stored as float values,
+    leaf of cluster c at row (C-1)+c
   tris (C, K//8, 128): 16-float records [v1 e1 e2 prim_id pad*6], 8 per
     128-float row; padding prims have e1 = e2 = 0 and never hit
-  treelet s (T consecutive clusters) is the subtree at row (S-1)+s
 
 Every sort is stable (jnp.argsort is), so equal keys -- the grid-quad
 floors and walls of the sponza-class scene have many -- keep input order
@@ -24,10 +31,9 @@ from typing import Any
 import torch
 
 from visionaray_torch.device import take
-from visionaray_torch.ops.lbvh import morton3d, refit, triangle_aabbs
-
-_RADIX_TODO = ("the radix-tree ClusterBVH (_build_single_tree, "
-               "build_radix_tree) is not ported yet: ROADMAP queue 2, 1e")
+from visionaray_torch.ops.lbvh import (
+    build_radix_tree, morton3d, refit, tree_depth, triangle_aabbs,
+)
 
 
 @dataclass
@@ -43,6 +49,7 @@ class ClusterBVH:
     treelet_roots: Any = None  # (S,) i32 node rows of the treelet roots
     heap: bool = False       # children of i at 2i+1 / 2i+2
     half_boxes: bool = False  # records 0/1 cols 10..15: half-cluster AABBs
+    depth: int = 0           # edges from the root to the deepest leaf
 
     def tri_records(self):
         """The packed table as (C, K, 16) records."""
@@ -51,8 +58,7 @@ class ClusterBVH:
 
 def _sorted_cluster_data(v1, e1, e2, K: int):
     """Morton-sort prims, group into K-clusters; returns (C, tri_cols,
-    cl_lo, cl_hi, cl_codes) with clusters sorted by their own codes.  Feeds
-    the radix-tree build, which is not ported yet."""
+    cl_lo, cl_hi, cl_codes) with clusters sorted by their own codes."""
     dev = v1.device
     F = v1.shape[0]
     lo, hi = triangle_aabbs(v1, e1, e2)
@@ -105,17 +111,41 @@ def pick_cluster_size(num_prims: int) -> int:
 
 def build_cluster_bvh(mesh, cluster_size: int = 0, treelet_size: int = 0,
                       sah_axis: bool = True) -> ClusterBVH:
-    """Build the ClusterBVH on the mesh's device.  Only the treelet build
-    (``treelet_size`` T > 0, the main path's K=32, T=128) is ported."""
-    v1, e1, e2 = mesh.corners()
+    """Build the ClusterBVH on the mesh's device: the kd heap with treelets
+    of ``treelet_size`` T clusters (the main path's K=32, T=128), or with
+    T = 0 one radix tree.  ``cluster_size`` 0 picks K automatically."""
+    with torch.no_grad():
+        v1, e1, e2 = mesh.corners()
     K = cluster_size or pick_cluster_size(v1.shape[0])
     if v1.shape[0] >= (1 << 24):
         raise ValueError(
             f"ClusterBVH holds prim ids as f32 (exact < 2^24); got "
             f"{v1.shape[0]} prims")
-    if treelet_size <= 0:
-        raise NotImplementedError("treelet_size=0 needs " + _RADIX_TODO)
-    return _build_kd_tree(v1, e1, e2, K, treelet_size, sah_axis=sah_axis)
+    if treelet_size > 0:
+        return _build_kd_tree(v1, e1, e2, K, treelet_size, sah_axis=sah_axis)
+    return _build_single_tree(*_sorted_cluster_data(v1, e1, e2, K), K=K)
+
+
+def _build_single_tree(C, tri_cols, cl_lo, cl_hi, cl_codes, K: int):
+    """One radix tree over the code-sorted clusters (JAX
+    cluster_bvh.py:209-227); the kids ride nodes[:, 6:8] as float values,
+    and C == 1 is a (1, 8) table with zero kids."""
+    dev = cl_lo.device
+    left, right, _ = build_radix_tree(cl_codes)
+    node_lo, node_hi = refit(left, right, cl_lo, cl_hi)
+    zeros = torch.zeros((C,), dtype=torch.float32, device=dev)
+    if C > 1:
+        lf = torch.cat([left.to(torch.float32), zeros])
+        rf = torch.cat([right.to(torch.float32), zeros])
+    else:
+        lf = rf = zeros
+    nodes = torch.stack([
+        node_lo[:, 0], node_lo[:, 1], node_lo[:, 2],
+        node_hi[:, 0], node_hi[:, 1], node_hi[:, 2], lf, rf], dim=1)
+    return ClusterBVH(nodes=nodes.contiguous(),
+                      tris=tri_cols.reshape(C, K // 8, 128).contiguous(),
+                      num_clusters=int(C), cluster_size=K,
+                      depth=tree_depth(left, right))
 
 
 def _half_sa(lo_h, hi_h):
@@ -179,9 +209,8 @@ def _build_kd_tree(v1, e1, e2, K: int, T: int,
     Cp = 1 << max(1, int(math.ceil(math.log2(-(-F // K)))))
     S = Cp // T
     if S <= 1:
-        raise NotImplementedError(
-            f"{Cp} clusters make {S} treelet(s) of {T}; that build needs "
-            + _RADIX_TODO)
+        # fewer than two treelets: one radix tree (JAX :310-313)
+        return _build_single_tree(*_sorted_cluster_data(v1, e1, e2, K), K=K)
     Fp = Cp * K
 
     lo, hi = triangle_aabbs(v1, e1, e2)
@@ -246,4 +275,5 @@ def _build_kd_tree(v1, e1, e2, K: int, T: int,
         treelet_hi=node_hi[S - 1: 2 * S - 1].contiguous(),
         treelet_roots=(S - 1) + torch.arange(S, dtype=torch.int32,
                                              device=dev),
-        heap=True, half_boxes=bool(half_boxes))
+        heap=True, half_boxes=bool(half_boxes),
+        depth=int(math.log2(Cp)))

@@ -4,7 +4,9 @@
 // _traverse_kernel (launched by _cluster_traverse, traverse.py:514-586) in
 // the modes the path tracer uses: coherent closest-hit and any-hit from the
 // root, and the treelet-binned two-pass tiles (closest-hit and any-hit)
-// where lanes [0, split) of a tile start at rootA and the rest at rootB.
+// where lanes [0, split) of a tile start at rootA and the rest at rootB;
+// on heap-built trees (children of n at 2n+1 / 2n+2) and on radix trees
+// (children read from the kids columns nodes[n, 6:8], traverse.py:159-174).
 //
 // Contract (the plain PyTorch version in traverse.py states it directly):
 // for every lane with max_t >= 0, the nearest triangle under the lane's
@@ -12,8 +14,10 @@
 // operation order, strict t < best_t fold), returned as (t, prim id as an
 // f32 value, u, v).  Any-hit lanes stop at the first such triangle and do
 // not write u, v.  Misses and dead lanes (max_t < 0) keep t = max_t,
-// prim = -1, u = v = 0.  Only heap-built trees (children of i at 2i+1 and
-// 2i+2) are taken; the radix-tree form with its kids column is not ported.
+// prim = -1, u = v = 0.  A tree of one cluster (C == 1) has its leaf at
+// node 0, so every live lane intersects cluster 0 with no box test, as the
+// TPU kernel's C == 1 path does (traverse.py:300-315).  The caller checks
+// that the tree's depth fits the stack.
 //
 // What bounds it on this card: neither the 3.35 TB/s of device memory nor
 // the 67 TFLOP/s of f32 arithmetic.  The inputs that must move are small
@@ -80,7 +84,22 @@ __device__ __forceinline__ float slab_entry(const float* __restrict__ nodes,
   return (tf >= tn && tf >= 0.0f && tn < best_t) ? tn : INFINITY;
 }
 
-template <bool kAnyHit, bool kCount>
+// Children of internal node n: arithmetic on a heap, the kids columns
+// (float values, exact below 2^24) on a radix tree.
+template <bool kHeap>
+__device__ __forceinline__ void children(const float* __restrict__ nodes,
+                                         int n, int& left, int& right) {
+  if (kHeap) {
+    left = 2 * n + 1;
+    right = 2 * n + 2;
+  } else {
+    const float2 k = __ldg(reinterpret_cast<const float2*>(nodes + 8 * n + 6));
+    left = static_cast<int>(k.x);
+    right = static_cast<int>(k.y);
+  }
+}
+
+template <bool kAnyHit, bool kCount, bool kHeap>
 __global__ void __launch_bounds__(128)
 traverse_kernel(const float4* __restrict__ rays,    // (npad, 8) as 2 float4
                 const float* __restrict__ nodes,    // (2C-1, 8)
@@ -157,8 +176,8 @@ traverse_kernel(const float4* __restrict__ rays,    // (npad, 8) as 2 float4
         }
         if (kAnyHit && done) break;
       } else {
-        const int left = 2 * node + 1;
-        const int right = 2 * node + 2;
+        int left, right;
+        children<kHeap>(nodes, node, left, right);
         const float tl = slab_entry(nodes, left, r, bt);
         const float tr = slab_entry(nodes, right, r, bt);
         if (kCount) n_box += 2;
@@ -209,7 +228,8 @@ extern "C" int vsnray_traverse(const void* rays, const void* nodes,
                                void* out_prim, void* out_u, void* out_v,
                                void* counters, int npad, int n_tiles,
                                int tile_lanes, int num_clusters,
-                               int cluster_size, int any_hit, void* stream) {
+                               int cluster_size, int any_hit, int heap,
+                               void* stream) {
   const dim3 block(128);
   const dim3 grid((npad + 127) / 128);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -223,15 +243,20 @@ extern "C" int vsnray_traverse(const void* rays, const void* nodes,
   float* ou = static_cast<float*>(out_u);
   float* ov = static_cast<float*>(out_v);
   int* cnt = static_cast<int*>(counters);
-#define VSNRAY_LAUNCH(ANY, CNT)                                             \
-  traverse_kernel<ANY, CNT><<<grid, block, 0, s>>>(                         \
+#define VSNRAY_LAUNCH(ANY, CNT, HEAP)                                       \
+  traverse_kernel<ANY, CNT, HEAP><<<grid, block, 0, s>>>(                   \
       r, nd, tr, ro, sp, ot, op, ou, ov, cnt, npad, n_tiles, tile_lanes,    \
       num_clusters, cluster_size)
+#define VSNRAY_LAUNCH_TREE(ANY, CNT)                                        \
+  if (heap) VSNRAY_LAUNCH(ANY, CNT, true); else VSNRAY_LAUNCH(ANY, CNT, false)
   if (any_hit) {
-    if (cnt) VSNRAY_LAUNCH(true, true); else VSNRAY_LAUNCH(true, false);
+    if (cnt) { VSNRAY_LAUNCH_TREE(true, true); }
+    else { VSNRAY_LAUNCH_TREE(true, false); }
   } else {
-    if (cnt) VSNRAY_LAUNCH(false, true); else VSNRAY_LAUNCH(false, false);
+    if (cnt) { VSNRAY_LAUNCH_TREE(false, true); }
+    else { VSNRAY_LAUNCH_TREE(false, false); }
   }
+#undef VSNRAY_LAUNCH_TREE
 #undef VSNRAY_LAUNCH
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,8 +1,10 @@
-"""Morton codes, triangle AABBs and bottom-up refit (port of the parts of
-ops/lbvh.py the ClusterBVH build uses; build_radix_tree waits, see
-ROADMAP).  Morton codes are uint32 values held in int64 tensors."""
+"""Morton codes, triangle AABBs, Karras'12 radix-tree linking and
+bottom-up refit (port of the parts of ops/lbvh.py the ClusterBVH build
+uses).  Morton codes are uint32 values held in int64 tensors."""
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -33,6 +35,108 @@ def triangle_aabbs(v1, e1, e2):
     lo = torch.minimum(torch.minimum(p0, p1), p2)
     hi = torch.maximum(torch.maximum(p0, p1), p2)
     return lo, hi
+
+
+def clz32(x):
+    """Leading zeros of 32-bit values held in an int64 tensor (0 -> 32),
+    exact: a bit-length search over shifts, no float log2."""
+    bits = torch.zeros_like(x)
+    for s in (16, 8, 4, 2, 1):
+        big = (x >> s) != 0
+        bits = bits + big.to(x.dtype) * s
+        x = torch.where(big, x >> s, x)
+    return 32 - (bits + (x != 0).to(x.dtype))
+
+
+def _delta_fn(codes, idx):
+    """delta(i, j): common-prefix length of keys i and j, with the sorted
+    index as tiebreak for equal codes (adds 32 + clz(i ^ j)); out-of-range
+    j -> -1 (Karras'12 section 4)."""
+    n = codes.shape[0]
+
+    def delta(i, j):
+        valid = (j >= 0) & (j < n)
+        jc = torch.clamp(j, 0, n - 1)
+        x = take(codes, i) ^ take(codes, jc)
+        d = clz32(x)
+        d_eq = 32 + clz32(take(idx, i) ^ take(idx, jc))
+        d = torch.where(x == 0, d_eq, d)
+        return torch.where(valid, d, -1)
+
+    return delta
+
+
+def build_radix_tree(codes_sorted):
+    """Karras'12 parallel radix-tree linking over sorted codes.
+
+    Returns (left, right, parent) int64: left/right index the unified
+    layout (internal [0, n-1), leaves [n-1, 2n-1)); parent covers all
+    nodes, -1 at the root.  Every search runs the fixed iteration counts of
+    the JAX build, so the links are equal to its links.
+    """
+    n = codes_sorted.shape[0]
+    dev = codes_sorted.device
+    if n == 1:
+        return (torch.zeros((0,), dtype=torch.int64, device=dev),
+                torch.zeros((0,), dtype=torch.int64, device=dev),
+                torch.full((1,), -1, dtype=torch.int64, device=dev))
+    codes = codes_sorted.to(torch.int64)
+    i = torch.arange(n - 1, dtype=torch.int64, device=dev)
+    idx = torch.arange(n, dtype=torch.int64, device=dev)
+    delta = _delta_fn(codes, idx)
+
+    d = torch.sign(delta(i, i + 1) - delta(i, i - 1))
+    delta_min = delta(i, i - d)
+
+    # upper bound of the range length: double while delta stays above
+    n_doublings = max(2, int(math.ceil(math.log2(max(n, 2)))) + 1)
+    lmax = torch.full_like(i, 2)
+    for _ in range(n_doublings):
+        cond = delta(i, i + lmax * d) > delta_min
+        lmax = torch.where(cond, torch.clamp_max(lmax * 2, 2 * n), lmax)
+
+    # binary search of the other end j = i + l*d
+    length = torch.zeros_like(i)
+    t = lmax // 2
+    for _ in range(n_doublings + 1):
+        cond = (t >= 1) & (delta(i, i + (length + t) * d) > delta_min)
+        length = torch.where(cond, length + t, length)
+        t = t // 2
+    j = i + length * d
+
+    # binary search of the split position
+    delta_node = delta(i, j)
+    s = torch.zeros_like(i)
+    t = (length + 1) // 2
+    for _ in range(n_doublings + 1):
+        cond = (t >= 1) & (delta(i, i + (s + t) * d) > delta_node)
+        s = torch.where(cond, s + t, s)
+        t = torch.where(t > 1, (t + 1) // 2, 0)
+    gamma = i + s * d + torch.clamp_max(d, 0)
+
+    lo = torch.minimum(i, j)
+    hi = torch.maximum(i, j)
+    leaf_base = n - 1
+    left = torch.where(lo == gamma, leaf_base + gamma, gamma)
+    right = torch.where(hi == gamma + 1, leaf_base + gamma + 1, gamma + 1)
+    parent = torch.full((2 * n - 1,), -1, dtype=torch.int64, device=dev)
+    parent[left] = i
+    parent[right] = i
+    return left, right, parent
+
+
+def tree_depth(left, right) -> int:
+    """Edges from the root (node 0) to the deepest leaf of a tree in the
+    unified layout; one host sync per level."""
+    n_int = left.shape[0]
+    depth = 0
+    frontier = torch.zeros((1,), dtype=torch.int64, device=left.device)
+    while True:
+        inner = frontier[frontier < n_int]
+        if inner.numel() == 0:
+            return depth
+        depth += 1
+        frontier = torch.cat([take(left, inner), take(right, inner)])
 
 
 def refit(left, right, leaf_lo, leaf_hi, max_iters: int = 64):

@@ -18,10 +18,23 @@ metadata (start nodes ``tile_roots`` (2, n_tiles), pass split
 TILE_ROWS, INTERLEAVE, BINNED_ROWS, BIN_M and _ENTRY_CHUNK keep their JAX
 values.
 
+Two tree forms: the kd heap (children of n at 2n+1 / 2n+2, the treelet
+build) and the radix tree (children read from nodes[n, 6:8]; C == 1 is a
+single leaf), traversed from node 0 only.
+
+Gradients: the traversal runs without autograd and only decides *which*
+primitive each lane hits.  ``_HitTuv`` passes the kernel's (t, u, v)
+through and, in backward, re-derives them with Moeller-Trumbore at that
+fixed primitive (JAX _hit_tuv).  Under a ``TraceTape`` the front ends
+record their traversal outputs, and a replay hands them back in call order
+instead of tracing again: that is how a checkpointed bounce recomputes its
+body in backward without a kernel launch.
+
 The JAX package's VSNRAY_FANOUT, VSNRAY_HALFSKIP and VSNRAY_DIRBITS switches
 are fixed at their defaults (binary descent, no half-cluster skip, no
 direction key bits: the binned sort key keeps 19 morton bits); the port
-reads no environment variables.
+reads no environment variables.  Wider descent and the half-cluster skip
+(PERF.md row 1f) are not ported.
 """
 
 from __future__ import annotations
@@ -32,6 +45,7 @@ import math
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -39,11 +53,12 @@ import torch
 
 from visionaray_torch.core.types import FLT_MAX, HitRecord, Ray
 from visionaray_torch.device import take
+from visionaray_torch.ops.intersect import intersect_triangle
 from visionaray_torch.ops.lbvh import morton3d
 
 TILE_ROWS = 32       # coherent path: tile = TILE_ROWS * 128 lanes
 INTERLEAVE = 2       # tiles per TPU grid step; fixes the padding granule
-STACK_DEPTH = 64     # kernel stack; a heap of C clusters needs log2(C)
+STACK_DEPTH = 64     # kernel stack entries; a tree of depth D needs D
 _INV_CLAMP = 1e18    # 1/d is clamped to +-1e18
 BIN_M = 6            # treelet slots per ray on the binned closest path
 BINNED_ROWS = 16     # binned path: tile = BINNED_ROWS * 128 lanes
@@ -55,7 +70,13 @@ TWO_PASS_CAP_FRAC = 0.08  # cluster_closest_hit(two_pass=True) ray cap
 #   any             coherent any-hit from the root (bounce-0 NEE shadows)
 #   binned_closest  two-pass tiles, closest-hit (bounces 1..)
 #   binned_any      two-pass tiles, any-hit (NEE shadows of bounces 1..)
-LAUNCHES = {"closest": 0, "any": 0, "binned_closest": 0, "binned_any": 0}
+#   radix_closest   radix tree from the root, closest-hit
+#   radix_any       radix tree from the root, any-hit
+#   c1_closest      single-cluster tree (C == 1), closest-hit
+#   c1_any          single-cluster tree (C == 1), any-hit
+LAUNCHES = {"closest": 0, "any": 0, "binned_closest": 0, "binned_any": 0,
+            "radix_closest": 0, "radix_any": 0, "c1_closest": 0,
+            "c1_any": 0}
 
 _SRC = Path(__file__).resolve().parent / "cuda" / "traverse.cu"
 _BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / \
@@ -109,7 +130,7 @@ def _library():
                       log=log.read_text() if log.exists() else "")
     lib = ctypes.CDLL(str(lib_path))
     fn = lib.vsnray_traverse
-    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 + \
+    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 + \
         [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     _LIB = lib
@@ -129,7 +150,7 @@ def _default_tiles(npad, tile_lanes, device):
 
 
 def _check_inputs(rays, nodes, tris, num_clusters, cluster_size, tile_lanes,
-                  tile_roots, tile_splits):
+                  tile_roots, tile_splits, heap, depth):
     npad = rays.shape[0]
     C, K = num_clusters, cluster_size
     n_tiles = npad // tile_lanes
@@ -153,16 +174,37 @@ def _check_inputs(rays, nodes, tris, num_clusters, cluster_size, tile_lanes,
     if npad == 0 or npad % tile_lanes:
         raise ValueError(f"cluster_traverse: {npad} lanes is not a positive "
                          f"multiple of tile_lanes={tile_lanes}")
-    if C & (C - 1) or C < 2 or K % 8:
-        raise ValueError("cluster_traverse needs a heap-built ClusterBVH "
-                         "(C a power of two >= 2, K a multiple of 8)")
-    if int(math.log2(C)) >= STACK_DEPTH:
-        raise ValueError("heap too deep for the traversal stack")
+    if K % 8:
+        raise ValueError("cluster_traverse: K must be a multiple of 8")
+    if heap:
+        if C & (C - 1) or C < 2:
+            raise ValueError("cluster_traverse: a heap-built ClusterBVH has "
+                             "C a power of two >= 2")
+        depth = int(math.log2(C))
+    elif depth is None:
+        raise ValueError("cluster_traverse: a radix tree needs its depth "
+                         "(ClusterBVH.depth)")
+    # the JAX kernel clips its stack index at STACK_DEPTH - 1 and would
+    # silently lose nodes; the port refuses such a tree instead
+    if depth > STACK_DEPTH:
+        raise ValueError(f"cluster_traverse: tree depth {depth} exceeds the "
+                         f"{STACK_DEPTH}-entry traversal stack")
+
+
+def launch_mode(heap: bool, num_clusters: int, two_pass: bool,
+                any_hit: bool) -> str:
+    """The LAUNCHES key of one launch."""
+    kind = "any" if any_hit else "closest"
+    if not heap:
+        return ("c1_" if num_clusters == 1 else "radix_") + kind
+    return ("binned_" if two_pass else "") + kind
 
 
 def cluster_traverse(rays, nodes, tris, num_clusters: int, cluster_size: int,
                      tile_lanes: int, any_hit: bool = False,
-                     tile_roots=None, tile_splits=None, counters=None):
+                     tile_roots=None, tile_splits=None, counters=None,
+                     heap: bool = True, depth=None, fanout: int = 2,
+                     half_skip: bool = False):
     """Closest-hit (or any-hit) of packed lanes under per-lane start nodes.
 
     ``rays`` (npad, 8) f32 from ``_pack_rays``; ``tile_roots`` (2, n_tiles)
@@ -171,19 +213,31 @@ def cluster_traverse(rays, nodes, tris, num_clusters: int, cluster_size: int,
     (npad,) f32; prim is the prim id as an f32 value, -1 on a miss, and
     misses and dead lanes keep t = max_t.  ``counters``: optional (npad, 2)
     i32 tensor the kernel fills with per-lane box and triangle tests.
+    ``heap``: children of n at 2n+1 / 2n+2; otherwise a radix tree whose
+    children are nodes[n, 6:8], of ``depth`` levels, traversed from node 0
+    (it has no tile roots).  ``fanout`` > 2 and ``half_skip`` (row 1f) are
+    not ported.
 
     CUDA tensors launch the kernel; CPU tensors run ``traverse_plain``.
     """
+    if fanout != 2 or half_skip:
+        raise NotImplementedError(
+            "fanout 4/8 descent and the half-cluster skip (PERF.md row 1f) "
+            "are not ported yet")
     npad = rays.shape[0]
     two_pass = tile_roots is not None
+    if two_pass and not heap:
+        raise ValueError("cluster_traverse: a radix tree is traversed from "
+                         "node 0 and takes no tile roots")
     if not two_pass:
         tile_roots, tile_splits = _default_tiles(npad, tile_lanes,
                                                  rays.device)
     _check_inputs(rays, nodes, tris, num_clusters, cluster_size, tile_lanes,
-                  tile_roots, tile_splits)
+                  tile_roots, tile_splits, heap, depth)
     if rays.device.type == "cpu":
         return traverse_plain(rays, nodes, tris, num_clusters, cluster_size,
-                              tile_lanes, any_hit, tile_roots, tile_splits)
+                              tile_lanes, any_hit, tile_roots, tile_splits,
+                              heap=heap)
     if rays.device.type != "cuda":
         raise ValueError(f"cluster_traverse: no kernel for {rays.device}")
     for x in (rays, nodes, tris):
@@ -207,12 +261,10 @@ def cluster_traverse(rays, nodes, tris, num_clusters: int, cluster_size: int,
             *[o.data_ptr() for o in outs],
             None if counters is None else counters.data_ptr(),
             npad, npad // tile_lanes, tile_lanes, num_clusters,
-            cluster_size, int(any_hit), stream)
+            cluster_size, int(any_hit), int(heap), stream)
     if err != 0:
         raise RuntimeError(f"traverse kernel launch failed: cudaError {err}")
-    mode = ("binned_" if two_pass else "") + ("any" if any_hit else
-                                              "closest")
-    LAUNCHES[mode] += 1
+    LAUNCHES[launch_mode(heap, num_clusters, two_pass, any_hit)] += 1
     return tuple(outs)
 
 
@@ -246,20 +298,22 @@ def _mt(o, d, rec):
 
 
 def traverse_plain(rays, nodes, tris, num_clusters: int, cluster_size: int,
-                   tile_lanes: int, any_hit: bool, tile_roots, tile_splits):
+                   tile_lanes: int, any_hit: bool, tile_roots, tile_splits,
+                   heap: bool = True):
     """The kernel's contract in plain PyTorch, brute force.
 
     Each live lane is tested against every triangle of every cluster under
     its start node -- on a heap the subtree of node n at depth dn covers the
     contiguous clusters [((n+1) << (D-dn)) - 1 - (C-1), + 2^(D-dn)), with
-    D = log2(C) -- in cluster order, folding with the strict t < best_t
-    (closest-hit: the first of equal nearest; any-hit: the first hit with
-    t < max_t).  ``nodes`` is not read: no box culls anything.
+    D = log2(C); on a radix tree the start must be the root, node 0, which
+    covers all C clusters -- in cluster order, folding with the strict
+    t < best_t (closest-hit: the first of equal nearest; any-hit: the first
+    hit with t < max_t).  ``nodes`` is not read: no box culls anything.
     """
     npad = rays.shape[0]
     dev = rays.device
     C, K = num_clusters, cluster_size
-    D = int(math.log2(C))
+    D = int(math.log2(C)) if heap else 0
     lane = torch.arange(npad, device=dev)
     tile = lane // tile_lanes
     in_a = (lane - tile * tile_lanes) < take(tile_splits, tile)
@@ -275,9 +329,15 @@ def traverse_plain(rays, nodes, tris, num_clusters: int, cluster_size: int,
     budget = (1 << 24) if dev.type == "cuda" else (1 << 20)
     for n in torch.unique(start[live]).tolist():
         idx = torch.nonzero(live & (start == n)).reshape(-1)
-        dn = (n + 1).bit_length() - 1
-        span = 1 << (D - dn)
-        c0 = ((n + 1) << (D - dn)) - 1 - (C - 1)
+        if heap:
+            dn = (n + 1).bit_length() - 1
+            span = 1 << (D - dn)
+            c0 = ((n + 1) << (D - dn)) - 1 - (C - 1)
+        elif n == 0:
+            span, c0 = C, 0
+        else:
+            raise ValueError(f"traverse_plain: a radix tree is traversed "
+                             f"from node 0, not {n}")
         o = rays[idx, 0:3]
         d = rays[idx, 3:6]
         g_t, g_p = bt[idx], bp[idx]
@@ -343,11 +403,55 @@ def _coherence_perm(o, d, root_lo, root_hi):
     return perm, _inverse_perm(perm)
 
 
-def _require_heap(cbvh):
-    if not cbvh.heap:
-        raise NotImplementedError(
-            "radix-tree ClusterBVHs (kids column, C == 1) are not ported "
-            "yet: ROADMAP queue 2, 1e")
+class TraceTape:
+    """The traversal outputs of the front ends, in call order."""
+
+    def __init__(self):
+        self.outs = []
+        self.pos = 0
+
+
+_TAPE = threading.local()   # .tape, .replay: set by recording / replaying
+
+
+class recording:
+    """Context: every front-end traversal appends its output to ``tape``."""
+
+    def __init__(self, tape: TraceTape):
+        self.tape = tape
+
+    def __enter__(self):
+        self.saved = (getattr(_TAPE, "tape", None),
+                      getattr(_TAPE, "replay", False))
+        _TAPE.tape, _TAPE.replay = self.tape, False
+
+    def __exit__(self, *exc):
+        _TAPE.tape, _TAPE.replay = self.saved
+
+
+class replaying(recording):
+    """Context: the front ends return ``tape``'s outputs in order and launch
+    nothing."""
+
+    def __enter__(self):
+        super().__enter__()
+        self.tape.pos = 0
+        _TAPE.replay = True
+
+
+def _traced(fn):
+    """The traversal ``fn()`` (kernel and glue) without autograd, recorded
+    or replayed as the current tape says."""
+    tape = getattr(_TAPE, "tape", None)
+    if tape is not None and _TAPE.replay:
+        out = tape.outs[tape.pos]
+        tape.pos += 1
+        return out
+    with torch.no_grad():
+        out = fn()
+    if tape is not None:
+        tape.outs.append(out)
+    return out
 
 
 def _traverse_sorted(o, d, mt, n, cbvh):
@@ -358,7 +462,8 @@ def _traverse_sorted(o, d, mt, n, cbvh):
     rays = _pack_rays(o, d, mt, n, npad, pad_maxt=-1.0)
     t, prim, u, v = cluster_traverse(
         rays, cbvh.nodes, cbvh.tris, cbvh.num_clusters, cbvh.cluster_size,
-        tile_lanes=TILE_ROWS * 128, any_hit=False)
+        tile_lanes=TILE_ROWS * 128, any_hit=False, heap=cbvh.heap,
+        depth=cbvh.depth)
     return torch.stack([t[:n], prim[:n], u[:n], v[:n]], dim=1)
 
 
@@ -370,21 +475,69 @@ def _flat_rays(ray: Ray, max_t):
     return o, d, mt
 
 
+class _HitTuv(torch.autograd.Function):
+    """(t, u, v) at the winning primitive (JAX traverse.py:602-642).
+
+    Forward returns the kernel's values, no gather.  Backward re-derives
+    them with Moeller-Trumbore at the fixed prim ``pid`` from the ray and
+    the 16-column corner table ``tbl`` = [v1 e1 e2 0*7], and returns the
+    gradients of ``ori``, ``dir`` and ``tbl``.
+    """
+
+    @staticmethod
+    def forward(ctx, ori, dir, tbl, pid, kt, ku, kv):
+        ctx.save_for_backward(ori, dir, tbl, pid)
+        return kt.clone(), ku.clone(), kv.clone()
+
+    @staticmethod
+    def backward(ctx, gt, gu, gv):
+        ori, dir, tbl, pid = ctx.saved_tensors
+        want = ctx.needs_input_grad[:3]
+        with torch.enable_grad():
+            args = [x.detach().requires_grad_(w)
+                    for x, w in zip((ori, dir, tbl), want)]
+            rows = take(args[2], pid)
+            t, u, v, _ = intersect_triangle(args[0], args[1], rows[..., 0:3],
+                                            rows[..., 3:6], rows[..., 6:9])
+            wrt = [a for a, w in zip(args, want) if w]
+            got = iter(torch.autograd.grad((t, u, v), wrt, (gt, gu, gv),
+                                           allow_unused=True))
+        grads = [next(got) if w else None for w in want]
+        grads = [torch.zeros_like(a) if w and g is None else g
+                 for a, g, w in zip(args, grads, want)]
+        return (*grads, None, None, None, None)
+
+
+def _hit_tuv(ray: Ray, mesh, pid, kt, ku, kv):
+    """``_HitTuv`` when a gradient can reach the ray or the vertices, else
+    the kernel's values as they are."""
+    if not (torch.is_grad_enabled() and (
+            ray.ori.requires_grad or ray.dir.requires_grad
+            or mesh.vertices.requires_grad)):
+        return kt, ku, kv
+    v1, e1, e2 = mesh.corners()
+    tbl = torch.cat([v1, e1, e2, torch.zeros(v1.shape[:-1] + (7,),
+                                             dtype=v1.dtype,
+                                             device=v1.device)], dim=-1)
+    return _HitTuv.apply(ray.ori, ray.dir, tbl, pid, kt, ku, kv)
+
+
 def _closest_record(outs, ray: Ray, mesh) -> HitRecord:
-    """HitRecord from kernel outputs (n, 4).  The kernel's (t, u, v) pass
-    through as the JAX forward does (_hit_tuv); its recompute backward
-    comes with the training slice."""
+    """HitRecord from traversal outputs (n, 4), differentiable by
+    recompute through ``_hit_tuv``."""
     bs = ray.batch_shape
     prim = outs[:, 1].reshape(bs)
     hit = prim >= 0.0
     pid = torch.where(hit, prim.to(torch.int32), 0)
+    t, u, v = _hit_tuv(ray, mesh, pid, outs[:, 0].reshape(bs),
+                       outs[:, 2].reshape(bs), outs[:, 3].reshape(bs))
     return HitRecord(
         hit=hit,
-        t=torch.where(hit, outs[:, 0].reshape(bs), FLT_MAX),
+        t=torch.where(hit, t, FLT_MAX),
         prim_id=pid,
         geom_id=take(mesh.geom_ids, pid),
-        u=torch.where(hit, outs[:, 2].reshape(bs), 0.0),
-        v=torch.where(hit, outs[:, 3].reshape(bs), 0.0),
+        u=torch.where(hit, u, 0.0),
+        v=torch.where(hit, v, 0.0),
     )
 
 
@@ -407,7 +560,13 @@ def cluster_closest_hit(ray: Ray, cbvh, mesh, max_t=FLT_MAX,
     ``two_pass``: trace first with rays capped at TWO_PASS_CAP_FRAC of the
     scene diagonal, then re-trace only the capped misses at full range.
     """
-    _require_heap(cbvh)
+    outs = _traced(lambda: _coherent_closest(ray, cbvh, max_t, sort_rays,
+                                             two_pass))
+    return _closest_record(outs, ray, mesh)
+
+
+def _coherent_closest(ray: Ray, cbvh, max_t, sort_rays: bool,
+                      two_pass: bool):
     o, d, mt = _flat_rays(ray, max_t)
     n = o.shape[0]
     chunk = TILE_ROWS * 128 * INTERLEAVE
@@ -432,13 +591,17 @@ def cluster_closest_hit(ray: Ray, cbvh, mesh, max_t=FLT_MAX,
         outs = _traverse_sorted(o, d, mt, n, cbvh)
     if inv is not None:
         outs = outs[inv]
-    return _closest_record(outs, ray, mesh)
+    return outs
 
 
 def cluster_any_hit(ray: Ray, cbvh, mesh, max_t,
                     sort_rays: bool = True) -> HitRecord:
     """Occlusion query over the whole tree, coherent tiles."""
-    _require_heap(cbvh)
+    return _any_record(_traced(lambda: _coherent_any(ray, cbvh, max_t,
+                                                     sort_rays)), ray, mesh)
+
+
+def _coherent_any(ray: Ray, cbvh, max_t, sort_rays: bool):
     o, d, mt = _flat_rays(ray, max_t)
     n = o.shape[0]
     chunk = TILE_ROWS * 128 * INTERLEAVE
@@ -451,11 +614,12 @@ def cluster_any_hit(ray: Ray, cbvh, mesh, max_t,
     rays = _pack_rays(o, d, mt, n, npad, pad_maxt=-1.0)
     t, prim, _, _ = cluster_traverse(
         rays, cbvh.nodes, cbvh.tris, cbvh.num_clusters, cbvh.cluster_size,
-        tile_lanes=TILE_ROWS * 128, any_hit=True)
+        tile_lanes=TILE_ROWS * 128, any_hit=True, heap=cbvh.heap,
+        depth=cbvh.depth)
     outs = torch.stack([t[:n], prim[:n]], dim=1)
     if inv is not None:
         outs = outs[inv]
-    return _any_record(outs, ray, mesh)
+    return outs
 
 
 # ---------------------------------------------------------------------------
@@ -548,7 +712,6 @@ def _binned_trace(ray: Ray, cbvh, max_t, m: int, any_hit: bool):
     front of their best hit.  A round with no live lane is skipped; that
     test is one host sync per round.
     """
-    _require_heap(cbvh)
     m = min(m, cbvh.num_treelets)
     o, d, mt = _flat_rays(ray, max_t)
     n = o.shape[0]
@@ -637,13 +800,13 @@ def binned_closest_hit(ray: Ray, cbvh, mesh, max_t=FLT_MAX,
     """Closest hit via treelet binning."""
     if cbvh.treelet_size <= 0:
         raise ValueError("binned traversal needs a treelet-built ClusterBVH")
-    return _closest_record(_binned_trace(ray, cbvh, max_t, m, any_hit=False),
-                           ray, mesh)
+    outs = _traced(lambda: _binned_trace(ray, cbvh, max_t, m, any_hit=False))
+    return _closest_record(outs, ray, mesh)
 
 
 def binned_any_hit(ray: Ray, cbvh, mesh, max_t, m: int = BIN_M) -> HitRecord:
     """Occlusion query via treelet binning (any pair hit occludes)."""
     if cbvh.treelet_size <= 0:
         raise ValueError("binned traversal needs a treelet-built ClusterBVH")
-    return _any_record(_binned_trace(ray, cbvh, max_t, m, any_hit=True),
-                       ray, mesh)
+    outs = _traced(lambda: _binned_trace(ray, cbvh, max_t, m, any_hit=True))
+    return _any_record(outs, ray, mesh)

@@ -1,11 +1,14 @@
 """Frame rendering front end (port of sched/render.py, path tracing only).
 
-Images are (H, W, 4) with row 0 the bottom scanline.  The whole render runs
-under torch.inference_mode(): this forward slice has no autograd.
+Images are (H, W, 4) with row 0 the bottom scanline.  A render runs under
+torch.inference_mode() unless autograd is on and a tensor of the scene, the
+camera or the kernel parameters requires grad; then it records the graph
+that ``sched/step.py`` differentiates.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from dataclasses import dataclass
 from typing import Any, Optional
@@ -15,6 +18,7 @@ import torch
 from visionaray_torch.kernels.params import KernelParams
 from visionaray_torch.kernels.pathtracing import pathtracing_kernel
 from visionaray_torch.ops.sampling import Sampler, as_u32, pcg_hash
+from visionaray_torch.shading.lights import light_groups
 
 SSAA_OFFSETS = {
     1: [(0.0, 0.0)],
@@ -60,6 +64,18 @@ def _pixel_grid(width, height, device):
     return xx.reshape(-1), yy.reshape(-1)
 
 
+def _grad_scope(scene, cam, params=None):
+    """inference_mode(), or no change when a gradient is wanted: autograd
+    is on and some input tensor requires grad."""
+    objs = [scene.mesh, scene.spheres, scene.planes, scene.materials, cam,
+            params, *light_groups(scene.lights)]
+    wanted = torch.is_grad_enabled() and any(
+        isinstance(v, torch.Tensor) and v.requires_grad
+        for o in objs if dataclasses.is_dataclass(o)
+        for v in vars(o).values())
+    return contextlib.nullcontext() if wanted else torch.inference_mode()
+
+
 def _check_algo(algo: str):
     if algo != "pathtracing":
         raise NotImplementedError(
@@ -72,7 +88,7 @@ def render_pixels(params: KernelParams, cam, x, y, width, height,
                   frame_num, seed: int = 0, nee: bool = False):
     """Render a flat batch of pixels; returns (color (N, 4), depth (N,))."""
     _check_algo(algo)
-    with torch.inference_mode():
+    with _grad_scope(params.scene, cam, params):
         pixel_id = (as_u32(y) * (width & 0xFFFFFFFF) + as_u32(x)) & 0xFFFFFFFF
         ssaa = torch.tensor(_ssaa_offsets(spp), dtype=torch.float32,
                             device=x.device)
@@ -143,7 +159,7 @@ def render(scene, cam, width: int, height: int, algo: str = "pathtracing",
         ambient = (1.0, 1.0, 1.0, 1.0)
     if pixel_sampler is None:
         pixel_sampler = "jittered_blend"
-    with torch.inference_mode():
+    with _grad_scope(scene, cam):
         if epsilon is None:
             bbox = scene.bbox()
             diag = float(torch.linalg.norm(bbox.hi - bbox.lo))

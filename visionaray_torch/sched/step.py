@@ -1,0 +1,65 @@
+"""The training step of bench.py: loss and gradients of one path-traced
+frame with respect to the vertices and the albedo ``cd`` (port of
+bench.py:123-140, ``jax.value_and_grad(loss_fn, argnums=(0, 1))``).
+
+The loss is the mean of the rendered RGB over the frame's pixels,
+``sum(color[..., :3]) / (n * 3)``.  As in bench.py the pixels are rendered
+in tiles of ``tile`` lanes and the last tile is padded with pixel (0, 0):
+those lanes are rendered and counted in the sum, and n stays the number of
+pixels.  At 1920x1080 the one 2^21-lane tile carries 23,552 such lanes.
+
+The gradient comes from ``kernels/pathtracing.py``'s checkpointed bounces
+and ``ops/traverse.py``'s recompute of each traced hit; the backward
+launches no traversal kernel.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from visionaray_torch.sched.render import render_pixels
+
+WIDTH, HEIGHT, SPP = 1920, 1080, 1
+TILE = 1 << 21     # bench.py TILE: lanes rendered per render_pixels call
+
+
+def frame_loss(verts, cd, frame, params, cam, x, y, nee: bool = True, *,
+               width: int = WIDTH, height: int = HEIGHT, spp: int = SPP,
+               tile: int = TILE):
+    """bench.py's loss of the frame at pixels (x, y), in that order; a
+    tensor that autograd can differentiate in ``verts`` and ``cd``.  The
+    mesh's stored face normals stay as they were (bench.py:124-127)."""
+    scene = params.scene
+    p2 = dataclasses.replace(params, scene=dataclasses.replace(
+        scene, mesh=dataclasses.replace(scene.mesh, vertices=verts),
+        materials=dataclasses.replace(scene.materials, cd=cd)))
+    n = x.shape[0]
+    n_tiles = -(-n // tile)
+    pad = n_tiles * tile - n
+    if pad:
+        x = torch.cat([x, torch.zeros((pad,), dtype=x.dtype,
+                                      device=x.device)])
+        y = torch.cat([y, torch.zeros((pad,), dtype=y.dtype,
+                                      device=y.device)])
+    sums = []
+    for i in range(n_tiles):
+        sl = slice(i * tile, (i + 1) * tile)
+        color, _ = render_pixels(p2, cam, x[sl], y[sl], width, height,
+                                 "pathtracing", spp, "jittered_blend", frame,
+                                 nee=nee)
+        sums.append(torch.sum(color[..., :3]))
+    return torch.sum(torch.stack(sums)) / (n * 3)
+
+
+def loss_and_grads(verts, cd, frame, params, cam, x, y, nee: bool = True,
+                   **kw):
+    """``(loss, (g_verts, g_cd))`` of bench.py's step; ``kw`` as for
+    ``frame_loss`` (width, height, spp, tile)."""
+    with torch.enable_grad():
+        verts = verts.detach().requires_grad_()
+        cd = cd.detach().requires_grad_()
+        loss = frame_loss(verts, cd, frame, params, cam, x, y, nee, **kw)
+        g_verts, g_cd = torch.autograd.grad(loss, (verts, cd))
+    return loss.detach(), (g_verts, g_cd)
