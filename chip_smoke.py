@@ -37,6 +37,18 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    timed as phase 3; its two modes held against the plain version on
    captured launches as in phase 2.  Then a mesh of 24 triangles (C == 1)
    rendered at 64x64, and its two modes held the same way.
+8. Row 1f on phase 3's scene and tree (K=32, so the kd build carries half
+   boxes): the 1080p frame under TraceConfig(fanout=4), (fanout=8),
+   (half_skip=True) and (fanout=4, half_skip=True), timed as phase 3, each
+   frame's launches counted per kernel form, its image held to phase 3's
+   with phase 4's image tolerance, and its modes 1, 1b, 1c and 1d held
+   against the plain version on captured launches as in phase 2 (relaunched
+   with the captured form).  Then the full-width training step under
+   (fanout=4, half_skip=True), checked and timed as phase 5.
+9. The main path's other switches: the 1080p frame with shadow_binned=False
+   (NEE shadows of bounces 1.. through coherent any-hit) and with
+   shadow_reversed=False, shadow_m=6, dir_bits=3; each finite, not
+   constant, with every expected mode launched.
 
 Output: one line per check, then a JSON line with per-kernel numbers, the
 card's name and power limit, and as the last line
@@ -66,6 +78,7 @@ from visionaray_torch.core.camera import Pinhole
 from visionaray_torch.core.scene import Scene, TriangleMesh
 from visionaray_torch.kernels.params import KernelParams
 from visionaray_torch.ops.cluster_bvh import build_cluster_bvh
+from visionaray_torch.ops.trace import TraceConfig
 from visionaray_torch.sched import step
 from visionaray_torch.sched.render import _pixel_grid, render_pixels
 from visionaray_torch.scenes.sponza_like import sponza_like_scene
@@ -101,6 +114,20 @@ RADIX_MODES = [("radix_closest", "traverse_radix_closest", "1e"),
                ("radix_any", "traverse_radix_any", "1e")]
 C1_MODES = [("c1_closest", "traverse_c1_closest", "1e (C == 1)"),
             ("c1_any", "traverse_c1_any", "1e (C == 1)")]
+# row 1f: the kernel's wide descent and half-cluster skip on the main path
+OPTIONS_1F = {"fanout4": TraceConfig(fanout=4),
+              "fanout8": TraceConfig(fanout=8),
+              "half_skip": TraceConfig(half_skip=True),
+              "fanout4_half_skip": TraceConfig(fanout=4, half_skip=True)}
+STEP_1F = "fanout4_half_skip"
+# phase 9: the shadow and sort-key switches, with the modes each launches
+SWITCHES = {
+    "shadow_coherent": (TraceConfig(shadow_binned=False),
+                        ("closest", "any", "binned_closest")),
+    "shadow_from_surface_m6_dir_bits3": (
+        TraceConfig(shadow_reversed=False, shadow_m=6, dir_bits=3),
+        ("closest", "any", "binned_closest", "binned_any")),
+}
 
 
 def log(*a):
@@ -139,17 +166,20 @@ class LaunchRecorder:
 
     def __call__(self, rays, nodes, tris, num_clusters, cluster_size,
                  tile_lanes, any_hit=False, tile_roots=None,
-                 tile_splits=None, counters=None, heap=True, depth=None):
+                 tile_splits=None, counters=None, heap=True, depth=None,
+                 fanout=2, half_skip=False):
         mode = trav.launch_mode(heap, num_clusters, tile_roots is not None,
                                 any_hit)
         if mode not in self.first:
             self.first[mode] = dict(
                 rays=rays.clone(), tile_lanes=tile_lanes, any_hit=any_hit,
                 roots=None if tile_roots is None else tile_roots.clone(),
-                splits=None if tile_splits is None else tile_splits.clone())
+                splits=None if tile_splits is None else tile_splits.clone(),
+                fanout=fanout, half_skip=half_skip)
         return self.fn(rays, nodes, tris, num_clusters, cluster_size,
                        tile_lanes, any_hit, tile_roots, tile_splits,
-                       counters, heap=heap, depth=depth)
+                       counters, heap=heap, depth=depth, fanout=fanout,
+                       half_skip=half_skip)
 
 
 @contextlib.contextmanager
@@ -164,8 +194,10 @@ def recorded(rec):
 
 def plain_on_card(rays, nodes, tris, num_clusters, cluster_size,
                   tile_lanes, any_hit=False, tile_roots=None,
-                  tile_splits=None, counters=None, heap=True, depth=None):
-    """cluster_traverse's contract through the plain version, on the card."""
+                  tile_splits=None, counters=None, heap=True, depth=None,
+                  fanout=2, half_skip=False):
+    """cluster_traverse's contract through the plain version, on the card
+    (the kernel form, ``fanout`` and ``half_skip``, does not change it)."""
     if tile_roots is None:
         tile_roots, tile_splits = trav._default_tiles(
             rays.shape[0], tile_lanes, rays.device)
@@ -222,17 +254,21 @@ def sub_launch(rays, roots, splits, tl, tiles):
 
 
 def check_mode(key, name, row, launch, bvh, launches):
+    """Kernel vs plain version on a captured launch, relaunched in the form
+    (fanout, half_skip) it was captured with."""
     rays, roots, splits, tl = full_tiles(launch)
     any_hit = launch["any_hit"]
     binned = launch["roots"] is not None
     C, Kc = bvh.num_clusters, bvh.cluster_size
+    fanout, half_skip = launch["fanout"], launch["half_skip"]
 
     def kernel(r, ro, sp, counters=None):
         return trav.cluster_traverse(
             r, bvh.nodes, bvh.tris, C, Kc, tile_lanes=tl, any_hit=any_hit,
             tile_roots=ro if binned else None,
             tile_splits=sp if binned else None, counters=counters,
-            heap=bvh.heap, depth=bvh.depth)
+            heap=bvh.heap, depth=bvh.depth, fanout=fanout,
+            half_skip=half_skip)
 
     def plain(r, ro, sp):
         return trav.traverse_plain(r, bvh.nodes, bvh.tris, C, Kc, tl,
@@ -280,7 +316,8 @@ def check_mode(key, name, row, launch, bvh, launches):
     t_ops = ops / PEAK_F32_S * 1e3
     ok = (hit_mm + prim_mm <= MISMATCH_SHARE * max(n_live, 1)
           and max_rel <= T_RTOL)
-    log(f"kernel {row} {name}: compare_lanes={sr.shape[0]} live={n_live} "
+    log(f"kernel {row} {name} (fanout={fanout} half_skip={half_skip}): "
+        f"compare_lanes={sr.shape[0]} live={n_live} "
         f"tiles={len(tiles)} straddling_tiles_in_launch={n_straddle} "
         f"live_dead_tiles_in_launch={n_mixed} hit_mismatch={hit_mm} "
         f"prim_mismatch_unique={prim_mm} max_rel_t={max_rel:.3e} "
@@ -301,6 +338,7 @@ def check_mode(key, name, row, launch, bvh, launches):
         "kernel_ms_compare": kernel_cmp_ms, "hit_mismatch": hit_mm,
         "prim_mismatch_unique": prim_mm, "max_rel_t": max_rel,
         "box_tests": tot[0], "tri_tests": tot[1],
+        "variant": trav.variant_key(key, fanout, half_skip),
     }
     return ok, entry
 
@@ -363,8 +401,9 @@ def grad_stats(got, ref):
     return rel, cos
 
 
-def training_step_phase(params, cam, x, y):
-    """Phase 5: bench.py's training step at full width."""
+def training_step_phase(params, cam, x, y, label="training step"):
+    """Phase 5 (and phase 8's step): bench.py's training step at full
+    width under ``params``."""
     verts = params.scene.mesh.vertices
     cd = params.scene.materials.cd
     torch.cuda.synchronize()
@@ -373,7 +412,9 @@ def training_step_phase(params, cam, x, y):
     torch.cuda.synchronize()
     warm_s = time.perf_counter() - t0
 
-    # the counted step: forward and backward apart, peak memory
+    # the counted step: forward and backward apart, peak memory (also as
+    # the increment over what earlier phases left allocated)
+    base_mem = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     with torch.enable_grad():
         v = verts.detach().requires_grad_()
@@ -384,6 +425,7 @@ def training_step_phase(params, cam, x, y):
         torch.cuda.synchronize()
         fwd_s = time.perf_counter() - t0
         fwd = dict(trav.LAUNCHES)
+        fwd_variants = dict(trav.VARIANT_LAUNCHES)
         trav.reset_launch_counts()
         t0 = time.perf_counter()
         g_v, g_c = torch.autograd.grad(loss, (v, c))
@@ -408,20 +450,23 @@ def training_step_phase(params, cam, x, y):
     ok = (finite and nonzero and bwd_launches == 0
           and all(fwd[k] > 0 for k, _, _ in MODES))
     lanes = -(-x.shape[0] // step.TILE) * step.TILE
-    log(f"training step 1920x1080 spp=1 bounces=5 nee ({lanes} lanes, "
+    log(f"{label} 1920x1080 spp=1 bounces=5 nee ({lanes} lanes, "
         f"{lanes - x.shape[0]} padding): step_s={step_s:.4f} (steps "
         f"{', '.join(f'{t:.4f}' for t in times)}) "
         f"mrays_per_s={rays / step_s / 1e6:.3f} warm_s={warm_s:.3f} "
         f"counted step forward_s={fwd_s:.4f} backward_s={bwd_s:.4f} "
-        f"peak_mem_bytes={peak} loss={float(loss.detach()):.7f} "
+        f"peak_mem_bytes={peak} step_mem_bytes={peak - base_mem} "
+        f"loss={float(loss.detach()):.7f} "
         f"|g_verts|={float(g_v.norm()):.6e} |g_cd|={float(g_c.norm()):.6e} "
         f"finite={finite} nonzero={nonzero}")
-    log(f"  forward launches={fwd} backward launches={bwd} "
-        f"{'OK' if ok else 'FAIL'}")
+    log(f"  forward launches={fwd} by kernel form={fwd_variants} "
+        f"backward launches={bwd} {'OK' if ok else 'FAIL'}")
     return ok, dict(step_s=step_s, mrays_per_s=rays / step_s / 1e6,
                     step_times=times, forward_s=fwd_s, backward_s=bwd_s,
-                    peak_mem_bytes=peak, loss=float(loss.detach()),
-                    forward_launches=fwd, backward_launches=bwd_launches)
+                    peak_mem_bytes=peak, step_mem_bytes=peak - base_mem,
+                    loss=float(loss.detach()),
+                    forward_launches=fwd, forward_variants=fwd_variants,
+                    backward_launches=bwd_launches)
 
 
 def grad_check(device):
@@ -467,6 +512,7 @@ def timed_frames(frame):
     torch.cuda.synchronize()
     times = [time.perf_counter() - t0]
     launches = dict(trav.LAUNCHES)
+    rec.variants = dict(trav.VARIANT_LAUNCHES)
     for i in range(TIMED_FRAMES - 1):
         t0 = time.perf_counter()
         frame(3 + i)
@@ -518,6 +564,78 @@ def c1_scene(device):
         bvh=build_cluster_bvh(mesh, cluster_size=32), device=device)
     cam = Pinhole.create((0.0, 0.5, 4.0), (0.0, 0.0, 0.0), device=device)
     return scene, cam
+
+
+def image_diff(img, ref):
+    """(mean abs difference, share of pixels off by more than IMG_PIX_TOL)
+    of two (N, 4) images."""
+    diff = (img - ref).abs()
+    return (float(diff.mean()),
+            float((diff.amax(-1) > IMG_PIX_TOL).float().mean()))
+
+
+def option_phase(option, cfg, params, cam, x, y, ref_color, check_modes):
+    """Phase 8, one 1f option: the 1080p frame under ``cfg``, timed as
+    phase 3, its launches by kernel form, its image against the default
+    frame's, and its modes against the plain version."""
+    p1 = dataclasses.replace(params, trace=cfg)
+
+    def frame(num):
+        return render_pixels(p1, cam, x, y, WIDTH, HEIGHT, "pathtracing",
+                             SPP, "jittered_blend", num, nee=True)
+
+    rec, launches, warm_s, times, color, depth = timed_frames(frame)
+    frame_s = sum(times) / len(times)
+    forms = {trav.variant_key(k, cfg.fanout, cfg.half_skip)
+             for k, _, _ in MODES}
+    mean_abs, share = image_diff(color, ref_color)
+    finite = bool(torch.isfinite(color).all())
+    std = float(color[:, :3].std())
+    hit = float((depth > 0).float().mean())
+    ok = (finite and std > 0 and hit > 0.5 and set(rec.variants) == forms
+          and mean_abs <= IMG_MEAN_ABS and share <= IMG_PIX_SHARE)
+    log(f"1f {option} frame 1920x1080 spp=1 bounces=5 nee: "
+        f"frame_s={frame_s:.4f} (frames "
+        f"{', '.join(f'{t:.4f}' for t in times)}) warm_s={warm_s:.3f} "
+        f"launches={rec.variants} hit_fraction={hit:.4f} "
+        f"image_std={std:.6f} vs default frame: mean_abs={mean_abs:.3e} "
+        f"pixels_over_{IMG_PIX_TOL:g}={share:.4f} finite={finite} "
+        f"{'OK' if ok else 'FAIL'}")
+    per_mode = {k: rec.variants.get(
+        trav.variant_key(k, cfg.fanout, cfg.half_skip), 0)
+        for k, _, _ in MODES}
+    modes = [(k, f"{name}_{option}", "1f") for k, name, _ in MODES]
+    ok &= check_modes(modes, rec, params.scene.bvh, per_mode)
+    return ok, dict(frame_s=frame_s, frame_times=times, warm_s=warm_s,
+                    launches=rec.variants, image_mean_abs_vs_default=mean_abs,
+                    image_share_over_tol_vs_default=share)
+
+
+def switch_phase(name, cfg, expect, params, cam, x, y, ref_color):
+    """Phase 9, one switch setting: a counted 1080p frame."""
+    p1 = dataclasses.replace(params, trace=cfg)
+    trav.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    color, depth = render_pixels(p1, cam, x, y, WIDTH, HEIGHT,
+                                 "pathtracing", SPP, "jittered_blend", 2,
+                                 nee=True)
+    torch.cuda.synchronize()
+    frame_s = time.perf_counter() - t0
+    launches = dict(trav.LAUNCHES)
+    mean_abs, share = image_diff(color, ref_color)
+    finite = bool(torch.isfinite(color).all())
+    std = float(color[:, :3].std())
+    ok = (finite and std > 0 and all(launches[k] > 0 for k in expect)
+          and sum(launches.values()) == sum(launches[k] for k in expect))
+    log(f"switches {name} ({cfg}): frame 1920x1080 frame_s={frame_s:.4f} "
+        f"(one frame, kernel warm) launches={launches} "
+        f"image_std={std:.6f} vs default frame: mean_abs={mean_abs:.3e} "
+        f"pixels_over_{IMG_PIX_TOL:g}={share:.4f} finite={finite} "
+        f"{'OK' if ok else 'FAIL'}")
+    return ok, dict(frame_s=frame_s, launches=launches,
+                    image_mean_abs_vs_default=mean_abs,
+                    image_share_over_tol_vs_default=share)
 
 
 def profile_run(run, label, table_path=None):
@@ -732,6 +850,41 @@ def main() -> int:
         all_ok &= check_modes(C1_MODES, crec, c1.bvh, claunches)
         del crec
 
+    with torch.no_grad():
+        # ---- phase 8: row 1f, the four options on the main path's frame
+        frames_1f = {}
+        for option, cfg in OPTIONS_1F.items():
+            first = len(entries)
+            good, frames_1f[option] = option_phase(
+                option, cfg, params, cam, x, y, color, check_modes)
+            for e in entries[first:]:
+                e["option"] = option
+            all_ok &= good
+
+    # ---- phase 8: the training step under one 1f option
+    cfg = OPTIONS_1F[STEP_1F]
+    step_ok, step_1f = training_step_phase(
+        dataclasses.replace(params, trace=cfg), cam, x, y,
+        label=f"1f {STEP_1F} training step")
+    forms = {trav.variant_key(k, cfg.fanout, cfg.half_skip)
+             for k, _, _ in MODES}
+    step_ok &= set(step_1f["forward_variants"]) == forms
+    all_ok &= step_ok
+    for e in entries:
+        if e.get("option") == STEP_1F:
+            e["launches_training_step"] = step_1f["forward_variants"].get(
+                e["variant"], 0)
+        elif e.get("option"):
+            e["launches_training_step"] = 0
+
+    with torch.no_grad():
+        # ---- phase 9: the shadow and sort-key switches
+        switch_frames = {}
+        for name, (cfg, expect) in SWITCHES.items():
+            good, switch_frames[name] = switch_phase(
+                name, cfg, expect, params, cam, x, y, color)
+            all_ok &= good
+
     if "--profile" in sys.argv[1:]:
         table = [a.split("=", 1)[1] for a in sys.argv[1:]
                  if a.startswith("--profile-table=")]
@@ -750,6 +903,8 @@ def main() -> int:
                     "training_step": step_info,
                     "radix_frame_s": rframe_s,
                     "radix_bvh_build_s": rbuild_s,
+                    "frames_1f": frames_1f, "training_step_1f": step_1f,
+                    "switch_frames": switch_frames,
                     "build_s": info["seconds"]}))
     log(f"card: {smi}")
     if not all_ok:

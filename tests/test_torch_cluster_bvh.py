@@ -137,8 +137,10 @@ def test_refit_matches_heap_levels():
 
 def test_unported_builds_raise():
     """The radix builds (row 1e) are ported: treelet_size=0 and a treelet
-    build of fewer than two treelets give the JAX build's radix tree.  What
-    stays unported is row 1f, refused by the kernel wrapper."""
+    build of fewer than two treelets give the JAX build's radix tree.  The
+    kernel wrapper refuses row 1f's options where the tree cannot take
+    them: wide descent on a radix tree, the half skip on a kd build with
+    K < 16 (no half boxes)."""
     verts, faces = random_triangles(40, seed=1)
     jm, tm = _meshes(verts, faces)
     for T in (0, 8):   # T = 8: 8 clusters make S = 1 treelet
@@ -149,9 +151,15 @@ def test_unported_builds_raise():
             np.testing.assert_array_equal(getattr(tb, k).numpy(),
                                           np.asarray(getattr(jb, k)))
     rays = torch.zeros((4096, 8))
-    with pytest.raises(NotImplementedError, match="1f"):
+    with pytest.raises(ValueError, match="heap"):
         trav.cluster_traverse(rays, tb.nodes, tb.tris, tb.num_clusters,
                               tb.cluster_size, 4096, heap=False,
                               depth=tb.depth, fanout=8)
+    kd = tcb.build_cluster_bvh(tm, cluster_size=8, treelet_size=2)
+    assert kd.heap and not kd.half_boxes
+    assert not kd.tris.reshape(-1, 16)[:, 10:].any()
+    with pytest.raises(ValueError, match="half boxes"):
+        trav.cluster_traverse(rays, kd.nodes, kd.tris, kd.num_clusters,
+                              kd.cluster_size, 4096, half_skip=True)
     assert tcb.pick_cluster_size(259_656) == jcb.pick_cluster_size(259_656)
     assert tcb.pick_cluster_size(10**6) == jcb.pick_cluster_size(10**6)

@@ -10,7 +10,9 @@ The kernel is built with -fmad=false, so on the same triangle it computes
 the plain version's t, u, v bit for bit.  The tests require equal hit
 flags, misses that keep t = max_t, and for closest-hit equal t, u, v where
 the prims agree; a prim may differ only on a tie at equal t.  Any-hit
-reports the first hit each side finds, so only its flag is compared.
+reports the first hit each side finds, so only its flag is compared.  The
+same holds for every 1f form (fanout 4/8, the half-cluster skip): they
+change the visiting order and the culling, not the result.
 """
 
 import numpy as np
@@ -95,9 +97,9 @@ def test_binned_rounds_match_plain(scene, any_hit, monkeypatch):
     real = trav.cluster_traverse
 
     def check(rays, nodes, tris, C, K, tile_lanes, any_hit=False,
-              tile_roots=None, tile_splits=None, counters=None):
+              tile_roots=None, tile_splits=None, counters=None, **tree):
         got = real(rays, nodes, tris, C, K, tile_lanes, any_hit, tile_roots,
-                   tile_splits)
+                   tile_splits, **tree)
         ref = trav.traverse_plain(rays, nodes, tris, C, K, tile_lanes,
                                   any_hit, tile_roots, tile_splits)
         _check(got, ref, rays, any_hit)
@@ -109,6 +111,74 @@ def test_binned_rounds_match_plain(scene, any_hit, monkeypatch):
     with torch.inference_mode():
         trav._binned_trace(ray, bvh, mt, 3, any_hit=any_hit)
     assert len(calls) >= 1 and sum(calls) >= 1
+
+
+# row 1f: (fanout, half_skip) forms of the kernel on the K=16 kd build
+VARIANTS = [(4, False), (8, False), (2, True), (4, True), (8, True)]
+
+
+@pytest.mark.parametrize("any_hit", [False, True])
+@pytest.mark.parametrize("fanout,half_skip", VARIANTS)
+def test_1f_coherent_match_plain(scene, any_hit, fanout, half_skip):
+    """Wide descent and the half-cluster skip change the visiting order
+    and the culling, not the result."""
+    s, ray = scene
+    bvh = s.bvh
+    assert bvh.heap and bvh.half_boxes
+    n = ray.ori.shape[0]
+    mt = torch.full((n,), 1e30, device=ray.ori.device)
+    mt[::7] = -1.0
+    npad = trav._round_up(n, 8192)
+    rays = trav._pack_rays(ray.ori, ray.dir, mt, n, npad, pad_maxt=-1.0)
+    mode = "any" if any_hit else "closest"
+    key = trav.variant_key(mode, fanout, half_skip)
+    before = trav.VARIANT_LAUNCHES.get(key, 0)
+    counters = torch.zeros((npad, 2), dtype=torch.int32, device=rays.device)
+    got = trav.cluster_traverse(rays, bvh.nodes, bvh.tris, bvh.num_clusters,
+                                bvh.cluster_size, tile_lanes=4096,
+                                any_hit=any_hit, counters=counters,
+                                fanout=fanout, half_skip=half_skip)
+    assert trav.VARIANT_LAUNCHES[key] == before + 1
+    roots, splits = trav._default_tiles(npad, 4096, rays.device)
+    ref = trav.traverse_plain(rays, bvh.nodes, bvh.tris, bvh.num_clusters,
+                              bvh.cluster_size, 4096, any_hit, roots, splits)
+    _check(got, ref, rays, any_hit)
+    base = torch.zeros_like(counters)
+    trav.cluster_traverse(rays, bvh.nodes, bvh.tris, bvh.num_clusters,
+                          bvh.cluster_size, tile_lanes=4096, any_hit=any_hit,
+                          counters=base)
+    if half_skip and not any_hit:
+        # a skipped half's triangles are not tested
+        assert int(counters[:, 1].sum()) < int(base[:, 1].sum())
+
+
+@pytest.mark.parametrize("fanout,half_skip", VARIANTS)
+def test_1f_binned_rounds_match_plain(scene, fanout, half_skip,
+                                      monkeypatch):
+    """The two-pass tiles of real binned rounds (closest-hit and any-hit)
+    under each 1f form."""
+    s, ray = scene
+    bvh = s.bvh
+    calls = []
+    real = trav.cluster_traverse
+
+    def check(rays, nodes, tris, C, K, tile_lanes, any_hit=False,
+              tile_roots=None, tile_splits=None, counters=None, **tree):
+        assert (tree["fanout"], tree["half_skip"]) == (fanout, half_skip)
+        got = real(rays, nodes, tris, C, K, tile_lanes, any_hit, tile_roots,
+                   tile_splits, **tree)
+        ref = trav.traverse_plain(rays, nodes, tris, C, K, tile_lanes,
+                                  any_hit, tile_roots, tile_splits)
+        _check(got, ref, rays, any_hit)
+        calls.append(int((tile_splits < tile_lanes).sum()))
+        return got
+
+    monkeypatch.setattr(trav, "cluster_traverse", check)
+    mt = torch.full((ray.ori.shape[0],), 1e30, device=ray.ori.device)
+    with torch.inference_mode():
+        for any_hit in (False, True):
+            trav._binned_trace(ray, bvh, mt, 3, any_hit, fanout, half_skip)
+    assert len(calls) >= 2 and sum(calls) >= 1
 
 
 def _c1_case(device):

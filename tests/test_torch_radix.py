@@ -174,7 +174,8 @@ def test_radix_any_hit_matches_jax(case):
 
 def test_radix_wrapper_refusals(case):
     """A radix tree starts at node 0 only, needs its depth, and fits the
-    stack; 1f's options are not ported."""
+    stack; it takes neither of 1f's options (wide descent needs a heap,
+    the half skip needs half boxes)."""
     name, (_, _, _, tb, o, d) = case
     n = o.shape[0]
     rays = trav._pack_rays(torch.as_tensor(o), torch.as_tensor(d),
@@ -192,9 +193,9 @@ def test_radix_wrapper_refusals(case):
     with pytest.raises(ValueError, match="stack"):
         trav.cluster_traverse(*args, heap=False,
                               depth=trav.STACK_DEPTH + 1)
-    with pytest.raises(NotImplementedError, match="1f"):
+    with pytest.raises(ValueError, match="heap"):
         trav.cluster_traverse(*args, heap=False, depth=tb.depth, fanout=4)
-    with pytest.raises(NotImplementedError, match="1f"):
+    with pytest.raises(ValueError, match="half boxes"):
         trav.cluster_traverse(*args, heap=False, depth=tb.depth,
                               half_skip=True)
     before = dict(trav.LAUNCHES)

@@ -5,9 +5,11 @@ The bounce loop is a Python loop; on a treelet-built ClusterBVH bounce 0
 (coherent camera rays and their shadow rays) traces the whole tree and
 bounces 1.. trace treelet-binned; any other tree traces every bounce
 coherently.  Retired lanes carry max_t = -1 and never enter a traversal
-tile.  NEE shadow segments are traced from the light end, through the
-binned path after bounce 0: the JAX package's VSNRAY_SHADOW_REVERSED and
-VSNRAY_SHADOW_BINNED defaults, fixed here.
+tile.  ``params.trace`` (``TraceConfig``) picks how: NEE shadow segments
+are traced from the light end (``shadow_reversed``, else from the
+surface), through the binned path after bounce 0 (``shadow_binned``, else
+coherently), as the JAX package's VSNRAY_SHADOW_REVERSED and
+VSNRAY_SHADOW_BINNED switches do; its traversal fields reach every query.
 
 With autograd on, each bounce runs under a non-reentrant checkpoint: the
 backward keeps only the bounce's carry and its traversal outputs (a
@@ -35,11 +37,13 @@ from visionaray_torch.shading.surface import get_surface
 
 
 def _nee_direct(lights, nc, surf, n, view_dir, isect_pos, eps, ua, ub, ul,
-                trace_any, mask=None):
+                trace_any, mask=None, reversed_shadow: bool = True):
     """One-sample next-event estimate of the direct term at isect_pos:
     uniform light pick, area lights sampled over their surface with the
     cos_l * A / (pi r^2) factor.  Lanes outside ``mask``, facing away from
-    the light or behind an area light fire no shadow ray (max_t = -1)."""
+    the light or behind an area light fire no shadow ray (max_t = -1).
+    ``reversed_shadow``: the shadow segment is traced from the light end,
+    else from the surface."""
     groups = light_groups(lights)
     total = sum(g.num_lights for g in groups)
     batch = tuple(isect_pos.shape[:-1])
@@ -79,27 +83,32 @@ def _nee_direct(lights, nc, surf, n, view_dir, isect_pos, eps, ua, ub, ul,
     if mask is not None:
         fire = fire & mask
     mt = torch.where(fire, dist - 2.0 * eps, -1.0)
-    # the segment is traced from the light end: shadow rays of one light
-    # share (nearly) one origin, so the batch is point-source coherent
-    shadow = trace_any(Ray(ori=P - wi * eps, dir=-wi), mt)
+    if reversed_shadow:
+        # from the light end: shadow rays of one light share (nearly) one
+        # origin, so the batch is point-source coherent
+        shadow = trace_any(Ray(ori=P - wi * eps, dir=-wi), mt)
+    else:
+        shadow = trace_any(Ray(ori=isect_pos + wi * eps, dir=wi), mt)
     visible = fire & ~shadow.hit
     direct = surf.materials.shade(n, view_dir, wi, I)
     return direct * (g * visible * float(total))[..., None]
 
 
 def scene_tracer(params: KernelParams, binned: bool):
-    """(closest, any) over the scene: closest_hit + get_surface."""
+    """(closest, any) over the scene: closest_hit + get_surface.  The
+    shadow query is binned only if ``params.trace.shadow_binned``."""
     scene = params.scene
+    cfg = params.trace
 
     def trace_closest(ray, max_t):
         hr = closest_hit(ray, scene, binned=binned, max_t=max_t,
-                         hit_filter=params.hit_filter)
+                         hit_filter=params.hit_filter, trace=cfg)
         return hr, get_surface(hr, ray, scene)
 
     def trace_any(ray, max_t):
         return any_hit(ray, scene, max_t=max_t,
-                       binned=binned,
-                       hit_filter=params.hit_filter)
+                       binned=binned and cfg.shadow_binned,
+                       hit_filter=params.hit_filter, trace=cfg)
 
     return trace_closest, trace_any
 
@@ -119,7 +128,8 @@ def _checkpointed(body):
 
 def pathtrace_loop(ray: Ray, sampler: Sampler, *, num_bounces: int,
                    tracer, tracer0=None, lights, nc: int, amb3, bg_color,
-                   eps, nee: bool) -> ResultRecord:
+                   eps, nee: bool,
+                   reversed_shadow: bool = True) -> ResultRecord:
     """The bounce loop, generic over the tracer; ``tracer0`` (if given)
     handles bounce 0 only."""
     batch = ray.batch_shape
@@ -160,7 +170,8 @@ def pathtrace_loop(ray: Ray, sampler: Sampler, *, num_bounces: int,
             # mirror lanes: shade() is 0, so their shadow ray is dropped
             take_d = active & ~emissive & ~surf.materials.is_specular()
             direct = _nee_direct(lights, nc, surf, n, view_dir, isect_pos0,
-                                 eps, ua, ub, ul, trace_any, mask=take_d)
+                                 eps, ua, ub, ul, trace_any, mask=take_d,
+                                 reversed_shadow=reversed_shadow)
             acc = torch.where(take_d[..., None], acc + dst * direct, acc)
             # emission counts on the camera ray and after a delta bounce
             take_e = active & emissive & (is_first | prev_delta)
@@ -226,4 +237,5 @@ def pathtracing_kernel(params: KernelParams, ray: Ray, sampler: Sampler,
         ray, sampler, num_bounces=params.num_bounces, tracer=tracer,
         tracer0=tracer0, lights=scene.lights, nc=nc,
         amb3=params.ambient_color[:3], bg_color=params.bg_color,
-        eps=params.epsilon, nee=nee)
+        eps=params.epsilon, nee=nee,
+        reversed_shadow=params.trace.shadow_reversed)

@@ -2,11 +2,13 @@
 //
 // Replaces the Pallas TPU kernel visionaray_tpu/ops/pallas/traverse.py::
 // _traverse_kernel (launched by _cluster_traverse, traverse.py:514-586) in
-// the modes the path tracer uses: coherent closest-hit and any-hit from the
-// root, and the treelet-binned two-pass tiles (closest-hit and any-hit)
-// where lanes [0, split) of a tile start at rootA and the rest at rootB;
-// on heap-built trees (children of n at 2n+1 / 2n+2) and on radix trees
-// (children read from the kids columns nodes[n, 6:8], traverse.py:159-174).
+// all of its modes: coherent closest-hit and any-hit from the root, and the
+// treelet-binned two-pass tiles (closest-hit and any-hit) where lanes
+// [0, split) of a tile start at rootA and the rest at rootB; on heap-built
+// trees (children of n at 2n+1 / 2n+2) and on radix trees (children read
+// from the kids columns nodes[n, 6:8], traverse.py:159-174); on heap trees
+// also with 4- or 8-wide descent (traverse.py:393-441) and with the
+// half-cluster skip (traverse.py:354-373).
 //
 // Contract (the plain PyTorch version in traverse.py states it directly):
 // for every lane with max_t >= 0, the nearest triangle under the lane's
@@ -16,8 +18,10 @@
 // not write u, v.  Misses and dead lanes (max_t < 0) keep t = max_t,
 // prim = -1, u = v = 0.  A tree of one cluster (C == 1) has its leaf at
 // node 0, so every live lane intersects cluster 0 with no box test, as the
-// TPU kernel's C == 1 path does (traverse.py:300-315).  The caller checks
-// that the tree's depth fits the stack.
+// TPU kernel's C == 1 path does (traverse.py:300-315).  The descent width
+// and the half-cluster skip change only the visiting order and the
+// culling, never the contract.  The caller checks that the tree's
+// worst-case stack fits.
 //
 // What bounds it on this card: neither the 3.35 TB/s of device memory nor
 // the 67 TFLOP/s of f32 arithmetic.  The inputs that must move are small
@@ -36,8 +40,21 @@
 // bounce rays by treelet, octant and entry-point morton code), so the
 // threads of a warp mostly visit the same nodes and their loads coalesce
 // in L1/L2.  Node boxes load as one float4 + one float2, triangle records
-// as three float4 (the first 12 of 16 floats).  Making it fast (packets
-// per warp, wide BVH, persistent threads) is later work.
+// as three float4 (the first 12 of 16 floats).
+//
+// Wide descent (kFanout 4 or 8, heap trees only): a node is expanded into
+// its descendants two (three) levels down, a child that is already a leaf
+// kept as it is with -1 in its empty sibling slot; the candidates are
+// slab-tested against the ray's best t, ordered by entry distance with the
+// reference's sorting network (_SORT_NET, traverse.py:76) in registers,
+// and the walk continues at the nearest while the others are pushed
+// far-to-near with their entry distances, so the pop loop still culls them
+// against the best hit.  It trades fewer, longer loop iterations for box
+// tests of grandchildren that binary descent might have culled at their
+// parent.  The half-cluster skip (kHalfSkip): at a leaf the two boxes of
+// the cluster's K/2 halves (floats 10..15 of records 0 and 1, written by
+// the kd build) are slab-tested first, and a half's triangles are tested
+// only if the ray enters its box before its best hit.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -std=c++17
 // -fmad=false -shared -Xcompiler -fPIC.  -fmad=false keeps every product
@@ -65,23 +82,30 @@ __device__ __forceinline__ float clamp_inv(float d) {
   return fminf(fmaxf(1.0f / d, -kInvClamp), kInvClamp);
 }
 
-// Entry distance of the ray into node n's box, or +inf when the box is
-// empty (padding), missed, behind the ray or beyond best_t.
+// Entry distance of the ray into the box [lo, hi], or +inf when the box is
+// empty (padding: lo.x > hi.x), missed, behind the ray or beyond best_t.
+__device__ __forceinline__ float box_entry(float lox, float loy, float loz,
+                                           float hix, float hiy, float hiz,
+                                           const RayData& r, float best_t) {
+  if (lox > hix) return INFINITY;
+  const float tx1 = (lox - r.ox) * r.ix, tx2 = (hix - r.ox) * r.ix;
+  const float ty1 = (loy - r.oy) * r.iy, ty2 = (hiy - r.oy) * r.iy;
+  const float tz1 = (loz - r.oz) * r.iz, tz2 = (hiz - r.oz) * r.iz;
+  float tn = fmaxf(fmaxf(fminf(tx1, tx2), fminf(ty1, ty2)), fminf(tz1, tz2));
+  float tf = fminf(fminf(fmaxf(tx1, tx2), fmaxf(ty1, ty2)), fmaxf(tz1, tz2));
+  tn -= fabsf(tn) * kSlabPad;
+  tf += fabsf(tf) * kSlabPad;
+  return (tf >= tn && tf >= 0.0f && tn < best_t) ? tn : INFINITY;
+}
+
+// box_entry of node n's box (one float4 + one float2 load).
 __device__ __forceinline__ float slab_entry(const float* __restrict__ nodes,
                                             int n, const RayData& r,
                                             float best_t) {
   const float4 a = __ldg(reinterpret_cast<const float4*>(nodes + 8 * n));
   const float2 b = __ldg(reinterpret_cast<const float2*>(nodes + 8 * n + 4));
   // a = lo.x lo.y lo.z hi.x, b = hi.y hi.z
-  if (a.x > a.w) return INFINITY;
-  const float tx1 = (a.x - r.ox) * r.ix, tx2 = (a.w - r.ox) * r.ix;
-  const float ty1 = (a.y - r.oy) * r.iy, ty2 = (b.x - r.oy) * r.iy;
-  const float tz1 = (a.z - r.oz) * r.iz, tz2 = (b.y - r.oz) * r.iz;
-  float tn = fmaxf(fmaxf(fminf(tx1, tx2), fminf(ty1, ty2)), fminf(tz1, tz2));
-  float tf = fminf(fminf(fmaxf(tx1, tx2), fmaxf(ty1, ty2)), fmaxf(tz1, tz2));
-  tn -= fabsf(tn) * kSlabPad;
-  tf += fabsf(tf) * kSlabPad;
-  return (tf >= tn && tf >= 0.0f && tn < best_t) ? tn : INFINITY;
+  return box_entry(a.x, a.y, a.z, a.w, b.x, b.y, r, best_t);
 }
 
 // Children of internal node n: arithmetic on a heap, the kids columns
@@ -99,7 +123,102 @@ __device__ __forceinline__ void children(const float* __restrict__ nodes,
   }
 }
 
-template <bool kAnyHit, bool kCount, bool kHeap>
+// Moeller-Trumbore of the ray against records [k0, k1) of one cluster,
+// folded into (bt, bp, bu, bv) with the strict t < bt, for the two halves
+// of the half-cluster skip.  Returns true when an any-hit lane found its
+// hit (and stops there).  The kernel's whole-cluster loop is the same
+// code written inline: called through this function it compiled to up to
+// 32 more instructions and ran 12-15% slower in every binary-descent mode on
+// an H100 (same registers).
+template <bool kAnyHit, bool kCount>
+__device__ __forceinline__ bool intersect_records(
+    const float4* __restrict__ rec, int k0, int k1, const RayData& r,
+    float& bt, float& bp, float& bu, float& bv, int& n_tri) {
+  for (int k = k0; k < k1; ++k) {
+    const float4 a = __ldg(rec + 4 * k);      // v1x v1y v1z e1x
+    const float4 b = __ldg(rec + 4 * k + 1);  // e1y e1z e2x e2y
+    const float4 c = __ldg(rec + 4 * k + 2);  // e2z pid pad pad
+    if (kCount) ++n_tri;
+    const float v1x = a.x, v1y = a.y, v1z = a.z;
+    const float e1x = a.w, e1y = b.x, e1z = b.y;
+    const float e2x = b.z, e2y = b.w, e2z = c.x;
+    // operation order of traverse.py:258-274
+    const float s1x = r.dy * e2z - r.dz * e2y;
+    const float s1y = r.dz * e2x - r.dx * e2z;
+    const float s1z = r.dx * e2y - r.dy * e2x;
+    const float div = s1x * e1x + s1y * e1y + s1z * e1z;
+    bool ok = div != 0.0f;
+    const float inv_div = 1.0f / (ok ? div : 1.0f);
+    const float ddx = r.ox - v1x;
+    const float ddy = r.oy - v1y;
+    const float ddz = r.oz - v1z;
+    const float b1 = (ddx * s1x + ddy * s1y + ddz * s1z) * inv_div;
+    ok = ok && (b1 >= 0.0f) && (b1 <= 1.0f);
+    const float s2x = ddy * e1z - ddz * e1y;
+    const float s2y = ddz * e1x - ddx * e1z;
+    const float s2z = ddx * e1y - ddy * e1x;
+    const float b2 = (r.dx * s2x + r.dy * s2y + r.dz * s2z) * inv_div;
+    ok = ok && (b2 >= 0.0f) && (b1 + b2 <= 1.0f);
+    const float t = (e2x * s2x + e2y * s2y + e2z * s2z) * inv_div;
+    if (ok && t >= 0.0f && t < bt) {
+      bt = t;
+      bp = c.y;
+      if (kAnyHit) return true;
+      bu = b1;
+      bv = b2;
+    }
+  }
+  return false;
+}
+
+// One comparator of a sorting network: ascending by key, a strict > so
+// equal keys keep their order (traverse.py:421-426).
+__device__ __forceinline__ void cswap(float& ka, int& ia, float& kb,
+                                      int& ib) {
+  if (ka > kb) {
+    const float tk = ka; ka = kb; kb = tk;
+    const int ti = ia; ia = ib; ib = ti;
+  }
+}
+
+// _SORT_NET[4] and _SORT_NET[8] (traverse.py:76-82), unrolled so that the
+// keys and indices stay in registers.
+template <int kN>
+__device__ __forceinline__ void sort_net(float (&key)[kN], int (&idx)[kN]);
+
+template <>
+__device__ __forceinline__ void sort_net<4>(float (&key)[4], int (&idx)[4]) {
+  cswap(key[0], idx[0], key[1], idx[1]);
+  cswap(key[2], idx[2], key[3], idx[3]);
+  cswap(key[0], idx[0], key[2], idx[2]);
+  cswap(key[1], idx[1], key[3], idx[3]);
+  cswap(key[1], idx[1], key[2], idx[2]);
+}
+
+template <>
+__device__ __forceinline__ void sort_net<8>(float (&key)[8], int (&idx)[8]) {
+  cswap(key[0], idx[0], key[1], idx[1]);
+  cswap(key[2], idx[2], key[3], idx[3]);
+  cswap(key[4], idx[4], key[5], idx[5]);
+  cswap(key[6], idx[6], key[7], idx[7]);
+  cswap(key[0], idx[0], key[2], idx[2]);
+  cswap(key[1], idx[1], key[3], idx[3]);
+  cswap(key[4], idx[4], key[6], idx[6]);
+  cswap(key[5], idx[5], key[7], idx[7]);
+  cswap(key[1], idx[1], key[2], idx[2]);
+  cswap(key[5], idx[5], key[6], idx[6]);
+  cswap(key[0], idx[0], key[4], idx[4]);
+  cswap(key[1], idx[1], key[5], idx[5]);
+  cswap(key[2], idx[2], key[6], idx[6]);
+  cswap(key[3], idx[3], key[7], idx[7]);
+  cswap(key[2], idx[2], key[4], idx[4]);
+  cswap(key[3], idx[3], key[5], idx[5]);
+  cswap(key[1], idx[1], key[2], idx[2]);
+  cswap(key[3], idx[3], key[4], idx[4]);
+  cswap(key[5], idx[5], key[6], idx[6]);
+}
+
+template <bool kAnyHit, bool kCount, bool kHeap, int kFanout, bool kHalfSkip>
 __global__ void __launch_bounds__(128)
 traverse_kernel(const float4* __restrict__ rays,    // (npad, 8) as 2 float4
                 const float* __restrict__ nodes,    // (2C-1, 8)
@@ -111,6 +230,9 @@ traverse_kernel(const float4* __restrict__ rays,    // (npad, 8) as 2 float4
                 int* __restrict__ counters,         // (npad, 2) or null
                 int npad, int n_tiles, int tile_lanes, int num_clusters,
                 int cluster_size) {
+  static_assert(kFanout == 2 || kFanout == 4 || kFanout == 8,
+                "fanout is 2, 4 or 8");
+  static_assert(kFanout == 2 || kHeap, "wide descent needs a heap tree");
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= npad) return;
   const float4 r0 = rays[2 * i];      // ox oy oz dx
@@ -137,45 +259,59 @@ traverse_kernel(const float4* __restrict__ rays,    // (npad, 8) as 2 float4
       if (node >= leaf_base) {
         const float4* rec =
             tris + static_cast<size_t>(node - leaf_base) * cluster_size * 4;
-        for (int k = 0; k < cluster_size; ++k) {
-          const float4 a = __ldg(rec + 4 * k);      // v1x v1y v1z e1x
-          const float4 b = __ldg(rec + 4 * k + 1);  // e1y e1z e2x e2y
-          const float4 c = __ldg(rec + 4 * k + 2);  // e2z pid pad pad
-          if (kCount) ++n_tri;
-          const float v1x = a.x, v1y = a.y, v1z = a.z;
-          const float e1x = a.w, e1y = b.x, e1z = b.y;
-          const float e2x = b.z, e2y = b.w, e2z = c.x;
-          // operation order of traverse.py:258-274
-          const float s1x = r.dy * e2z - r.dz * e2y;
-          const float s1y = r.dz * e2x - r.dx * e2z;
-          const float s1z = r.dx * e2y - r.dy * e2x;
-          const float div = s1x * e1x + s1y * e1y + s1z * e1z;
-          bool ok = div != 0.0f;
-          const float inv_div = 1.0f / (ok ? div : 1.0f);
-          const float ddx = r.ox - v1x;
-          const float ddy = r.oy - v1y;
-          const float ddz = r.oz - v1z;
-          const float b1 = (ddx * s1x + ddy * s1y + ddz * s1z) * inv_div;
-          ok = ok && (b1 >= 0.0f) && (b1 <= 1.0f);
-          const float s2x = ddy * e1z - ddz * e1y;
-          const float s2y = ddz * e1x - ddx * e1z;
-          const float s2z = ddx * e1y - ddy * e1x;
-          const float b2 = (r.dx * s2x + r.dy * s2y + r.dz * s2z) * inv_div;
-          ok = ok && (b2 >= 0.0f) && (b1 + b2 <= 1.0f);
-          const float t = (e2x * s2x + e2y * s2y + e2z * s2z) * inv_div;
-          if (ok && t >= 0.0f && t < bt) {
-            bt = t;
-            bp = c.y;
-            if (kAnyHit) {
-              done = true;
-              break;
+        if constexpr (kHalfSkip) {
+          // half h's box: floats 10..15 of record h = lo.xyz hi.xyz
+          const int half = cluster_size / 2;
+          for (int h = 0; h < 2 && !done; ++h) {
+            const float4 c = __ldg(rec + 4 * h + 2);  // e2z pid lo.x lo.y
+            const float4 d = __ldg(rec + 4 * h + 3);  // lo.z hi.x hi.y hi.z
+            if (kCount) ++n_box;
+            if (box_entry(c.z, c.w, d.x, d.y, d.z, d.w, r, bt) < bt)
+              done = intersect_records<kAnyHit, kCount>(
+                  rec, h * half, (h + 1) * half, r, bt, bp, bu, bv, n_tri);
+          }
+        } else {
+          // the same loop as intersect_records, inline (see there)
+          for (int k = 0; k < cluster_size; ++k) {
+            const float4 a = __ldg(rec + 4 * k);      // v1x v1y v1z e1x
+            const float4 b = __ldg(rec + 4 * k + 1);  // e1y e1z e2x e2y
+            const float4 c = __ldg(rec + 4 * k + 2);  // e2z pid pad pad
+            if (kCount) ++n_tri;
+            const float v1x = a.x, v1y = a.y, v1z = a.z;
+            const float e1x = a.w, e1y = b.x, e1z = b.y;
+            const float e2x = b.z, e2y = b.w, e2z = c.x;
+            // operation order of traverse.py:258-274
+            const float s1x = r.dy * e2z - r.dz * e2y;
+            const float s1y = r.dz * e2x - r.dx * e2z;
+            const float s1z = r.dx * e2y - r.dy * e2x;
+            const float div = s1x * e1x + s1y * e1y + s1z * e1z;
+            bool ok = div != 0.0f;
+            const float inv_div = 1.0f / (ok ? div : 1.0f);
+            const float ddx = r.ox - v1x;
+            const float ddy = r.oy - v1y;
+            const float ddz = r.oz - v1z;
+            const float b1 = (ddx * s1x + ddy * s1y + ddz * s1z) * inv_div;
+            ok = ok && (b1 >= 0.0f) && (b1 <= 1.0f);
+            const float s2x = ddy * e1z - ddz * e1y;
+            const float s2y = ddz * e1x - ddx * e1z;
+            const float s2z = ddx * e1y - ddy * e1x;
+            const float b2 = (r.dx * s2x + r.dy * s2y + r.dz * s2z) * inv_div;
+            ok = ok && (b2 >= 0.0f) && (b1 + b2 <= 1.0f);
+            const float t = (e2x * s2x + e2y * s2y + e2z * s2z) * inv_div;
+            if (ok && t >= 0.0f && t < bt) {
+              bt = t;
+              bp = c.y;
+              if (kAnyHit) {
+                done = true;
+                break;
+              }
+              bu = b1;
+              bv = b2;
             }
-            bu = b1;
-            bv = b2;
           }
         }
         if (kAnyHit && done) break;
-      } else {
+      } else if constexpr (kFanout == 2) {
         int left, right;
         children<kHeap>(nodes, node, left, right);
         const float tl = slab_entry(nodes, left, r, bt);
@@ -192,6 +328,44 @@ traverse_kernel(const float4* __restrict__ rays,    // (npad, 8) as 2 float4
           } else {
             node = hl ? left : right;
           }
+          continue;
+        }
+      } else {
+        // the frontier kFanout/2 levels down (traverse.py:400-412): a
+        // candidate that is a leaf stays, its empty sibling slot gets -1
+        constexpr int kLevels = kFanout == 8 ? 3 : 2;
+        int idx[kFanout];
+        idx[0] = 2 * node + 1;
+        idx[1] = 2 * node + 2;
+#pragma unroll
+        for (int lv = 1; lv < kLevels; ++lv) {
+#pragma unroll
+          for (int j = (1 << lv) - 1; j >= 0; --j) {
+            const int c = idx[j];
+            const bool keep = c >= leaf_base || c < 0;
+            idx[2 * j] = keep ? c : 2 * c + 1;
+            idx[2 * j + 1] = keep ? -1 : 2 * c + 2;
+          }
+        }
+        float key[kFanout];
+#pragma unroll
+        for (int j = 0; j < kFanout; ++j) {
+          key[j] = idx[j] >= 0 ? slab_entry(nodes, idx[j], r, bt) : INFINITY;
+          if (kCount) n_box += idx[j] >= 0;
+        }
+        sort_net<kFanout>(key, idx);
+        if (key[0] < INFINITY) {
+          // push the hit candidates behind the nearest, far to near, so
+          // the nearest of them is on top
+#pragma unroll
+          for (int j = kFanout - 1; j >= 1; --j) {
+            if (key[j] < INFINITY) {
+              stack_node[sp] = idx[j];
+              stack_t[sp] = key[j];
+              ++sp;
+            }
+          }
+          node = idx[0];
           continue;
         }
       }
@@ -218,10 +392,54 @@ traverse_kernel(const float4* __restrict__ rays,    // (npad, 8) as 2 float4
   }
 }
 
+struct LaunchArgs {
+  dim3 grid, block;
+  cudaStream_t stream;
+  const float4* rays;
+  const float* nodes;
+  const float4* tris;
+  const int* roots;
+  const int* splits;
+  float *out_t, *out_prim, *out_u, *out_v;
+  int* counters;
+  int npad, n_tiles, tile_lanes, num_clusters, cluster_size;
+};
+
+template <bool kAnyHit, bool kCount, bool kHeap, int kFanout, bool kHalfSkip>
+void launch(const LaunchArgs& a) {
+  traverse_kernel<kAnyHit, kCount, kHeap, kFanout, kHalfSkip>
+      <<<a.grid, a.block, 0, a.stream>>>(
+          a.rays, a.nodes, a.tris, a.roots, a.splits, a.out_t, a.out_prim,
+          a.out_u, a.out_v, a.counters, a.npad, a.n_tiles, a.tile_lanes,
+          a.num_clusters, a.cluster_size);
+}
+
+// The instantiation for (heap, fanout, half_skip); false for a
+// combination the kernel does not take (wide descent or the half skip on a
+// radix tree, a fanout other than 2, 4, 8).
+template <bool kAnyHit, bool kCount>
+bool launch_tree(const LaunchArgs& a, int heap, int fanout, int half_skip) {
+  if (!heap) {
+    if (fanout != 2 || half_skip) return false;
+    launch<kAnyHit, kCount, false, 2, false>(a);
+    return true;
+  }
+  switch (fanout * 2 + (half_skip ? 1 : 0)) {
+    case 4: launch<kAnyHit, kCount, true, 2, false>(a); return true;
+    case 5: launch<kAnyHit, kCount, true, 2, true>(a); return true;
+    case 8: launch<kAnyHit, kCount, true, 4, false>(a); return true;
+    case 9: launch<kAnyHit, kCount, true, 4, true>(a); return true;
+    case 16: launch<kAnyHit, kCount, true, 8, false>(a); return true;
+    case 17: launch<kAnyHit, kCount, true, 8, true>(a); return true;
+    default: return false;
+  }
+}
+
 }  // namespace
 
 // Plain C entry point for ctypes.  Launches on ``stream`` and returns
-// cudaGetLastError() of the launch (0 = success).
+// cudaGetLastError() of the launch (0 = success), or cudaErrorInvalidValue
+// without launching for an option the kernel does not take.
 extern "C" int vsnray_traverse(const void* rays, const void* nodes,
                                const void* tris, const void* roots,
                                const void* splits, void* out_t,
@@ -229,34 +447,34 @@ extern "C" int vsnray_traverse(const void* rays, const void* nodes,
                                void* counters, int npad, int n_tiles,
                                int tile_lanes, int num_clusters,
                                int cluster_size, int any_hit, int heap,
-                               void* stream) {
-  const dim3 block(128);
-  const dim3 grid((npad + 127) / 128);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float4* r = static_cast<const float4*>(rays);
-  const float* nd = static_cast<const float*>(nodes);
-  const float4* tr = static_cast<const float4*>(tris);
-  const int* ro = static_cast<const int*>(roots);
-  const int* sp = static_cast<const int*>(splits);
-  float* ot = static_cast<float*>(out_t);
-  float* op = static_cast<float*>(out_prim);
-  float* ou = static_cast<float*>(out_u);
-  float* ov = static_cast<float*>(out_v);
-  int* cnt = static_cast<int*>(counters);
-#define VSNRAY_LAUNCH(ANY, CNT, HEAP)                                       \
-  traverse_kernel<ANY, CNT, HEAP><<<grid, block, 0, s>>>(                   \
-      r, nd, tr, ro, sp, ot, op, ou, ov, cnt, npad, n_tiles, tile_lanes,    \
-      num_clusters, cluster_size)
-#define VSNRAY_LAUNCH_TREE(ANY, CNT)                                        \
-  if (heap) VSNRAY_LAUNCH(ANY, CNT, true); else VSNRAY_LAUNCH(ANY, CNT, false)
+                               int fanout, int half_skip, void* stream) {
+  LaunchArgs a;
+  a.block = dim3(128);
+  a.grid = dim3((npad + 127) / 128);
+  a.stream = static_cast<cudaStream_t>(stream);
+  a.rays = static_cast<const float4*>(rays);
+  a.nodes = static_cast<const float*>(nodes);
+  a.tris = static_cast<const float4*>(tris);
+  a.roots = static_cast<const int*>(roots);
+  a.splits = static_cast<const int*>(splits);
+  a.out_t = static_cast<float*>(out_t);
+  a.out_prim = static_cast<float*>(out_prim);
+  a.out_u = static_cast<float*>(out_u);
+  a.out_v = static_cast<float*>(out_v);
+  a.counters = static_cast<int*>(counters);
+  a.npad = npad;
+  a.n_tiles = n_tiles;
+  a.tile_lanes = tile_lanes;
+  a.num_clusters = num_clusters;
+  a.cluster_size = cluster_size;
+  bool ok;
   if (any_hit) {
-    if (cnt) { VSNRAY_LAUNCH_TREE(true, true); }
-    else { VSNRAY_LAUNCH_TREE(true, false); }
+    ok = a.counters ? launch_tree<true, true>(a, heap, fanout, half_skip)
+                    : launch_tree<true, false>(a, heap, fanout, half_skip);
   } else {
-    if (cnt) { VSNRAY_LAUNCH_TREE(false, true); }
-    else { VSNRAY_LAUNCH_TREE(false, false); }
+    ok = a.counters ? launch_tree<false, true>(a, heap, fanout, half_skip)
+                    : launch_tree<false, false>(a, heap, fanout, half_skip);
   }
-#undef VSNRAY_LAUNCH_TREE
-#undef VSNRAY_LAUNCH
+  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,11 +1,14 @@
 """Traversal front-end: closest_hit / any_hit over a Scene (port of the
-ClusterBVH, brute-force, sphere and plane branches of ops/trace.py).
+ClusterBVH, brute-force, sphere and plane branches of ops/trace.py), and
+``TraceConfig``, the traversal switches that the JAX package reads from
+its environment.
 
 Hit filters, multi_hit and the LBVH tier are not ported yet.
 """
 
 from __future__ import annotations
 
+from dataclasses import dataclass
 from typing import Optional
 
 import torch
@@ -25,9 +28,49 @@ PRIM_PLANE = 2
 
 _CHUNK = 512   # brute-force primitive chunk (bounds the N x F matrix)
 
-# Treelet slots of binned any-hit (NEE shadow rays), fewer than BIN_M:
-# the default of the JAX package's _shadow_m() (VSNRAY_SHADOW_M).
-SHADOW_M = 3
+
+@dataclass(frozen=True)
+class TraceConfig:
+    """The JAX package's process switches of the traversal, as one value.
+
+    Each field is the counterpart of an environment variable of the JAX
+    package, with its default:
+
+    - ``fanout`` (VSNRAY_FANOUT, 2): kernel descent width on heap trees,
+      2, 4 or 8 (PERF.md row 1f); a radix tree always descends 2 wide.
+    - ``half_skip`` (VSNRAY_HALFSKIP, off): the kernel's half-cluster skip,
+      on trees that carry half boxes (kd builds with K >= 16).
+    - ``dir_bits`` (VSNRAY_DIRBITS, 0): in-octant direction bits in place of
+      as many low morton bits of the binned path's sort key, 0..19.
+    - ``shadow_m`` (VSNRAY_SHADOW_M, 3): treelet slots of binned any-hit.
+    - ``shadow_binned`` (VSNRAY_SHADOW_BINNED, on): NEE shadow rays of
+      bounces 1.. through binned any-hit; off, through coherent any-hit.
+    - ``shadow_reversed`` (VSNRAY_SHADOW_REVERSED, on): each NEE shadow
+      segment traced from the light end; off, from the surface.
+
+    None of them changes what a query answers, only how it is traced.
+    """
+
+    fanout: int = 2
+    half_skip: bool = False
+    dir_bits: int = 0
+    shadow_m: int = 3
+    shadow_binned: bool = True
+    shadow_reversed: bool = True
+
+    def __post_init__(self):
+        if self.fanout not in (2, 4, 8):
+            raise ValueError(f"TraceConfig: fanout must be 2, 4 or 8, got "
+                             f"{self.fanout}")
+        if not 0 <= self.dir_bits <= 19:
+            raise ValueError(f"TraceConfig: dir_bits must be in [0, 19], "
+                             f"got {self.dir_bits}")
+        if self.shadow_m < 1:
+            raise ValueError(f"TraceConfig: shadow_m must be >= 1, got "
+                             f"{self.shadow_m}")
+
+
+DEFAULT_TRACE = TraceConfig()
 
 
 def _check_unported(bvh, hit_filter):
@@ -122,14 +165,15 @@ def _other_groups(ray, scene, best, merge):
 
 
 def closest_hit(ray: Ray, scene, use_bvh: Optional[bool] = None,
-                hit_filter=None, binned: bool = False,
-                max_t=None) -> HitRecord:
+                hit_filter=None, binned: bool = False, max_t=None,
+                trace: TraceConfig = DEFAULT_TRACE) -> HitRecord:
     """Closest-hit query over the whole scene.
 
     Triangles go through the ClusterBVH when ``scene.bvh`` is set
     (``binned``: the treelet-binned path for incoherent rays), else a
     brute-force sweep; spheres and planes are swept.  ``max_t``: per-lane
-    bound; lanes with max_t <= 0 are dead and never traverse.
+    bound; lanes with max_t <= 0 are dead and never traverse.  ``trace``:
+    the traversal switches (fanout, half_skip, dir_bits).
     """
     _check_unported(scene.bvh, hit_filter)
     from visionaray_torch.ops.traverse import (
@@ -140,10 +184,13 @@ def closest_hit(ray: Ray, scene, use_bvh: Optional[bool] = None,
         if use_bvh is None:
             use_bvh = scene.bvh is not None
         mt = FLT_MAX if max_t is None else max_t
+        kw = dict(fanout=trace.fanout, half_skip=trace.half_skip)
         if use_bvh and binned and scene.bvh.treelet_size > 0:
-            hr = binned_closest_hit(ray, scene.bvh, scene.mesh, max_t=mt)
+            hr = binned_closest_hit(ray, scene.bvh, scene.mesh, max_t=mt,
+                                    dir_bits=trace.dir_bits, **kw)
         elif use_bvh:
-            hr = cluster_closest_hit(ray, scene.bvh, scene.mesh, max_t=mt)
+            hr = cluster_closest_hit(ray, scene.bvh, scene.mesh, max_t=mt,
+                                     **kw)
         else:
             v1, e1, e2 = scene.mesh.corners()
             hr = intersect_triangles_brute(ray, v1, e1, e2,
@@ -161,8 +208,10 @@ def closest_hit(ray: Ray, scene, use_bvh: Optional[bool] = None,
 
 
 def any_hit(ray: Ray, scene, max_t, use_bvh: Optional[bool] = None,
-            hit_filter=None, binned: bool = False) -> HitRecord:
-    """Any-hit (occlusion) query: a hit counts iff hit && 0 <= t < max_t."""
+            hit_filter=None, binned: bool = False,
+            trace: TraceConfig = DEFAULT_TRACE) -> HitRecord:
+    """Any-hit (occlusion) query: a hit counts iff hit && 0 <= t < max_t.
+    ``binned`` takes ``trace.shadow_m`` treelet slots."""
     _check_unported(scene.bvh, hit_filter)
     from visionaray_torch.ops.traverse import binned_any_hit, cluster_any_hit
     best = HitRecord.none(ray.batch_shape, ray.dir.device)
@@ -173,11 +222,13 @@ def any_hit(ray: Ray, scene, max_t, use_bvh: Optional[bool] = None,
     if scene.mesh is not None:
         if use_bvh is None:
             use_bvh = scene.bvh is not None
+        kw = dict(fanout=trace.fanout, half_skip=trace.half_skip)
         if use_bvh and binned and scene.bvh.treelet_size > 0:
             hr = binned_any_hit(ray, scene.bvh, scene.mesh, max_t,
-                                m=SHADOW_M)
+                                m=trace.shadow_m, dir_bits=trace.dir_bits,
+                                **kw)
         elif use_bvh:
-            hr = cluster_any_hit(ray, scene.bvh, scene.mesh, max_t)
+            hr = cluster_any_hit(ray, scene.bvh, scene.mesh, max_t, **kw)
         else:
             v1, e1, e2 = scene.mesh.corners()
             hr = intersect_triangles_brute(ray, v1, e1, e2,

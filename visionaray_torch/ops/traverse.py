@@ -20,7 +20,11 @@ values.
 
 Two tree forms: the kd heap (children of n at 2n+1 / 2n+2, the treelet
 build) and the radix tree (children read from nodes[n, 6:8]; C == 1 is a
-single leaf), traversed from node 0 only.
+single leaf), traversed from node 0 only.  On a heap the kernel can also
+descend 4 or 8 wide (``fanout``) and, where the kd build wrote half-cluster
+boxes, skip the half of a cluster whose box the ray misses (``half_skip``):
+PERF.md row 1f.  Neither changes the contract, so ``traverse_plain`` is
+the oracle for every option.
 
 Gradients: the traversal runs without autograd and only decides *which*
 primitive each lane hits.  ``_HitTuv`` passes the kernel's (t, u, v)
@@ -30,11 +34,11 @@ record their traversal outputs, and a replay hands them back in call order
 instead of tracing again: that is how a checkpointed bounce recomputes its
 body in backward without a kernel launch.
 
-The JAX package's VSNRAY_FANOUT, VSNRAY_HALFSKIP and VSNRAY_DIRBITS switches
-are fixed at their defaults (binary descent, no half-cluster skip, no
-direction key bits: the binned sort key keeps 19 morton bits); the port
-reads no environment variables.  Wider descent and the half-cluster skip
-(PERF.md row 1f) are not ported.
+The front ends take the JAX package's VSNRAY_FANOUT, VSNRAY_HALFSKIP and
+VSNRAY_DIRBITS switches as arguments (``ops/trace.py::TraceConfig`` carries
+them from ``KernelParams``); the port reads no environment variables.  As
+in JAX (_fanout_for, _half_skip_for), each tree gets what it can take: a
+radix tree runs binary descent, a tree without half boxes no skip.
 """
 
 from __future__ import annotations
@@ -58,7 +62,8 @@ from visionaray_torch.ops.lbvh import morton3d
 
 TILE_ROWS = 32       # coherent path: tile = TILE_ROWS * 128 lanes
 INTERLEAVE = 2       # tiles per TPU grid step; fixes the padding granule
-STACK_DEPTH = 64     # kernel stack entries; a tree of depth D needs D
+STACK_DEPTH = 64     # kernel stack entries; see stack_need
+FANOUTS = (2, 4, 8)  # descent widths of the kernel (JAX _SORT_NET keys)
 _INV_CLAMP = 1e18    # 1/d is clamped to +-1e18
 BIN_M = 6            # treelet slots per ray on the binned closest path
 BINNED_ROWS = 16     # binned path: tile = BINNED_ROWS * 128 lanes
@@ -77,6 +82,9 @@ TWO_PASS_CAP_FRAC = 0.08  # cluster_closest_hit(two_pass=True) ray cap
 LAUNCHES = {"closest": 0, "any": 0, "binned_closest": 0, "binned_any": 0,
             "radix_closest": 0, "radix_any": 0, "c1_closest": 0,
             "c1_any": 0}
+# Kernel launches per (mode, fanout, half_skip), keyed by variant_key: which
+# form of the kernel each launch ran.
+VARIANT_LAUNCHES: dict = {}
 
 _SRC = Path(__file__).resolve().parent / "cuda" / "traverse.cu"
 _BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / \
@@ -92,6 +100,13 @@ _LIB = None
 def reset_launch_counts():
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+    VARIANT_LAUNCHES.clear()
+
+
+def variant_key(mode: str, fanout: int, half_skip: bool) -> str:
+    """The VARIANT_LAUNCHES key of one launch, e.g.
+    ``binned_closest/fanout4/half_skip``."""
+    return f"{mode}/fanout{fanout}" + ("/half_skip" if half_skip else "")
 
 
 def _nvcc() -> str:
@@ -130,7 +145,7 @@ def _library():
                       log=log.read_text() if log.exists() else "")
     lib = ctypes.CDLL(str(lib_path))
     fn = lib.vsnray_traverse
-    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 + \
+    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 9 + \
         [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     _LIB = lib
@@ -149,8 +164,15 @@ def _default_tiles(npad, tile_lanes, device):
     return roots, splits
 
 
+def stack_need(depth: int, fanout: int) -> int:
+    """Worst-case stack entries of a walk over a tree of ``depth`` levels:
+    each descent pushes at most fanout - 1 nodes and goes log2(fanout)
+    levels down (a heap keeps its leaves on one level)."""
+    return (fanout - 1) * -(-depth // (fanout.bit_length() - 1))
+
+
 def _check_inputs(rays, nodes, tris, num_clusters, cluster_size, tile_lanes,
-                  tile_roots, tile_splits, heap, depth):
+                  tile_roots, tile_splits, heap, depth, fanout, half_skip):
     npad = rays.shape[0]
     C, K = num_clusters, cluster_size
     n_tiles = npad // tile_lanes
@@ -176,6 +198,18 @@ def _check_inputs(rays, nodes, tris, num_clusters, cluster_size, tile_lanes,
                          f"multiple of tile_lanes={tile_lanes}")
     if K % 8:
         raise ValueError("cluster_traverse: K must be a multiple of 8")
+    if fanout not in FANOUTS:
+        raise ValueError(f"cluster_traverse: fanout must be one of "
+                         f"{FANOUTS}, got {fanout}")
+    if fanout > 2 and not heap:
+        raise ValueError("cluster_traverse: fanout > 2 needs a heap-built "
+                         "tree (the kd build); a radix tree descends 2 wide")
+    # the kd build writes the half-cluster boxes into records 0 and 1
+    # exactly when K >= 16 (cluster_bvh.py half_boxes); elsewhere columns
+    # 10..15 hold zeros, and a skip over them would cull real triangles
+    if half_skip and not (heap and K >= 16):
+        raise ValueError("cluster_traverse: half_skip needs a tree that "
+                         "carries half boxes (a kd build with K >= 16)")
     if heap:
         if C & (C - 1) or C < 2:
             raise ValueError("cluster_traverse: a heap-built ClusterBVH has "
@@ -186,9 +220,11 @@ def _check_inputs(rays, nodes, tris, num_clusters, cluster_size, tile_lanes,
                          "(ClusterBVH.depth)")
     # the JAX kernel clips its stack index at STACK_DEPTH - 1 and would
     # silently lose nodes; the port refuses such a tree instead
-    if depth > STACK_DEPTH:
-        raise ValueError(f"cluster_traverse: tree depth {depth} exceeds the "
-                         f"{STACK_DEPTH}-entry traversal stack")
+    if stack_need(depth, fanout) > STACK_DEPTH:
+        raise ValueError(
+            f"cluster_traverse: a tree of depth {depth} at fanout {fanout} "
+            f"needs {stack_need(depth, fanout)} entries, more than the "
+            f"{STACK_DEPTH}-entry traversal stack")
 
 
 def launch_mode(heap: bool, num_clusters: int, two_pass: bool,
@@ -215,15 +251,12 @@ def cluster_traverse(rays, nodes, tris, num_clusters: int, cluster_size: int,
     i32 tensor the kernel fills with per-lane box and triangle tests.
     ``heap``: children of n at 2n+1 / 2n+2; otherwise a radix tree whose
     children are nodes[n, 6:8], of ``depth`` levels, traversed from node 0
-    (it has no tile roots).  ``fanout`` > 2 and ``half_skip`` (row 1f) are
-    not ported.
+    (it has no tile roots).  ``fanout`` 4 or 8: wider descent, heap trees
+    only; ``half_skip``: the half-cluster skip, on kd builds with K >= 16
+    (row 1f).  Neither changes the result.
 
     CUDA tensors launch the kernel; CPU tensors run ``traverse_plain``.
     """
-    if fanout != 2 or half_skip:
-        raise NotImplementedError(
-            "fanout 4/8 descent and the half-cluster skip (PERF.md row 1f) "
-            "are not ported yet")
     npad = rays.shape[0]
     two_pass = tile_roots is not None
     if two_pass and not heap:
@@ -233,7 +266,7 @@ def cluster_traverse(rays, nodes, tris, num_clusters: int, cluster_size: int,
         tile_roots, tile_splits = _default_tiles(npad, tile_lanes,
                                                  rays.device)
     _check_inputs(rays, nodes, tris, num_clusters, cluster_size, tile_lanes,
-                  tile_roots, tile_splits, heap, depth)
+                  tile_roots, tile_splits, heap, depth, fanout, half_skip)
     if rays.device.type == "cpu":
         return traverse_plain(rays, nodes, tris, num_clusters, cluster_size,
                               tile_lanes, any_hit, tile_roots, tile_splits,
@@ -261,10 +294,14 @@ def cluster_traverse(rays, nodes, tris, num_clusters: int, cluster_size: int,
             *[o.data_ptr() for o in outs],
             None if counters is None else counters.data_ptr(),
             npad, npad // tile_lanes, tile_lanes, num_clusters,
-            cluster_size, int(any_hit), int(heap), stream)
+            cluster_size, int(any_hit), int(heap), fanout, int(half_skip),
+            stream)
     if err != 0:
         raise RuntimeError(f"traverse kernel launch failed: cudaError {err}")
-    LAUNCHES[launch_mode(heap, num_clusters, two_pass, any_hit)] += 1
+    mode = launch_mode(heap, num_clusters, two_pass, any_hit)
+    LAUNCHES[mode] += 1
+    key = variant_key(mode, fanout, half_skip)
+    VARIANT_LAUNCHES[key] = VARIANT_LAUNCHES.get(key, 0) + 1
     return tuple(outs)
 
 
@@ -454,7 +491,26 @@ def _traced(fn):
     return out
 
 
-def _traverse_sorted(o, d, mt, n, cbvh):
+def _fanout_for(cbvh, fanout: int) -> int:
+    """The descent width a tree takes (JAX _fanout_for): ``fanout`` on a
+    heap build, 2 on a radix tree."""
+    return fanout if cbvh.heap else 2
+
+
+def _half_skip_for(cbvh, half_skip: bool) -> bool:
+    """The half-cluster skip where the tree carries half boxes (JAX
+    _half_skip_for)."""
+    return bool(half_skip and cbvh.half_boxes)
+
+
+def _tree_kw(cbvh, fanout: int, half_skip: bool) -> dict:
+    """cluster_traverse's tree arguments for ``cbvh``."""
+    return dict(heap=cbvh.heap, depth=cbvh.depth,
+                fanout=_fanout_for(cbvh, fanout),
+                half_skip=_half_skip_for(cbvh, half_skip))
+
+
+def _traverse_sorted(o, d, mt, n, cbvh, fanout: int, half_skip: bool):
     """Kernel over pre-sorted rays in coherent tiles; returns (n, 4)
     [t prim u v]."""
     chunk = TILE_ROWS * 128 * INTERLEAVE
@@ -462,8 +518,8 @@ def _traverse_sorted(o, d, mt, n, cbvh):
     rays = _pack_rays(o, d, mt, n, npad, pad_maxt=-1.0)
     t, prim, u, v = cluster_traverse(
         rays, cbvh.nodes, cbvh.tris, cbvh.num_clusters, cbvh.cluster_size,
-        tile_lanes=TILE_ROWS * 128, any_hit=False, heap=cbvh.heap,
-        depth=cbvh.depth)
+        tile_lanes=TILE_ROWS * 128, any_hit=False,
+        **_tree_kw(cbvh, fanout, half_skip))
     return torch.stack([t[:n], prim[:n], u[:n], v[:n]], dim=1)
 
 
@@ -553,20 +609,23 @@ def _any_record(outs, ray: Ray, mesh) -> HitRecord:
 
 
 def cluster_closest_hit(ray: Ray, cbvh, mesh, max_t=FLT_MAX,
-                        sort_rays: bool = True,
-                        two_pass: bool = False) -> HitRecord:
+                        sort_rays: bool = True, two_pass: bool = False,
+                        fanout: int = 2,
+                        half_skip: bool = False) -> HitRecord:
     """Closest hit over the whole tree, coherent tiles.
 
     ``two_pass``: trace first with rays capped at TWO_PASS_CAP_FRAC of the
     scene diagonal, then re-trace only the capped misses at full range.
+    ``fanout``, ``half_skip``: the kernel options (row 1f), taken where the
+    tree allows them.
     """
     outs = _traced(lambda: _coherent_closest(ray, cbvh, max_t, sort_rays,
-                                             two_pass))
+                                             two_pass, fanout, half_skip))
     return _closest_record(outs, ray, mesh)
 
 
 def _coherent_closest(ray: Ray, cbvh, max_t, sort_rays: bool,
-                      two_pass: bool):
+                      two_pass: bool, fanout: int, half_skip: bool):
     o, d, mt = _flat_rays(ray, max_t)
     n = o.shape[0]
     chunk = TILE_ROWS * 128 * INTERLEAVE
@@ -580,28 +639,31 @@ def _coherent_closest(ray: Ray, cbvh, max_t, sort_rays: bool,
     if two_pass:
         diag = torch.linalg.norm(root_hi - root_lo)
         cap = TWO_PASS_CAP_FRAC * diag
-        outs1 = _traverse_sorted(o, d, torch.minimum(mt, cap), n, cbvh)
+        outs1 = _traverse_sorted(o, d, torch.minimum(mt, cap), n, cbvh,
+                                 fanout, half_skip)
         missed = (outs1[:, 1] < 0.0) & (mt > cap)
         perm2 = torch.argsort((~missed).to(torch.int32), stable=True)
         inv2 = _inverse_perm(perm2)
         mt2 = torch.where(missed, mt, -1.0)
-        outs2 = _traverse_sorted(o[perm2], d[perm2], mt2[perm2], n, cbvh)
+        outs2 = _traverse_sorted(o[perm2], d[perm2], mt2[perm2], n, cbvh,
+                                 fanout, half_skip)
         outs = torch.where(missed[:, None], outs2[inv2], outs1)
     else:
-        outs = _traverse_sorted(o, d, mt, n, cbvh)
+        outs = _traverse_sorted(o, d, mt, n, cbvh, fanout, half_skip)
     if inv is not None:
         outs = outs[inv]
     return outs
 
 
-def cluster_any_hit(ray: Ray, cbvh, mesh, max_t,
-                    sort_rays: bool = True) -> HitRecord:
+def cluster_any_hit(ray: Ray, cbvh, mesh, max_t, sort_rays: bool = True,
+                    fanout: int = 2, half_skip: bool = False) -> HitRecord:
     """Occlusion query over the whole tree, coherent tiles."""
-    return _any_record(_traced(lambda: _coherent_any(ray, cbvh, max_t,
-                                                     sort_rays)), ray, mesh)
+    return _any_record(_traced(lambda: _coherent_any(
+        ray, cbvh, max_t, sort_rays, fanout, half_skip)), ray, mesh)
 
 
-def _coherent_any(ray: Ray, cbvh, max_t, sort_rays: bool):
+def _coherent_any(ray: Ray, cbvh, max_t, sort_rays: bool, fanout: int,
+                  half_skip: bool):
     o, d, mt = _flat_rays(ray, max_t)
     n = o.shape[0]
     chunk = TILE_ROWS * 128 * INTERLEAVE
@@ -614,8 +676,8 @@ def _coherent_any(ray: Ray, cbvh, max_t, sort_rays: bool):
     rays = _pack_rays(o, d, mt, n, npad, pad_maxt=-1.0)
     t, prim, _, _ = cluster_traverse(
         rays, cbvh.nodes, cbvh.tris, cbvh.num_clusters, cbvh.cluster_size,
-        tile_lanes=TILE_ROWS * 128, any_hit=True, heap=cbvh.heap,
-        depth=cbvh.depth)
+        tile_lanes=TILE_ROWS * 128, any_hit=True,
+        **_tree_kw(cbvh, fanout, half_skip))
     outs = torch.stack([t[:n], prim[:n]], dim=1)
     if inv is not None:
         outs = outs[inv]
@@ -704,14 +766,20 @@ def _two_pass_tile_meta(skey_s, troots, S: int, n_tiles: int, chunk: int,
             rootB.to(torch.int32))
 
 
-def _binned_trace(ray: Ray, cbvh, max_t, m: int, any_hit: bool):
+def _binned_trace(ray: Ray, cbvh, max_t, m: int, any_hit: bool,
+                  fanout: int = 2, half_skip: bool = False,
+                  dir_bits: int = 0):
     """Binned traversal loop; returns per-ray (n, 4) [t prim u v] with t the global
     distance (treelet entry + local t).
 
     Round r traces the lanes whose r-th nearest treelet entry is still in
     front of their best hit.  A round with no live lane is skipped; that
-    test is one host sync per round.
+    test is one host sync per round.  ``dir_bits`` > 0 replaces the lowest
+    morton bits of the sort key by as many in-octant direction bits (JAX
+    VSNRAY_DIRBITS, traverse.py:1020-1031).
     """
+    if not 0 <= dir_bits <= 19:
+        raise ValueError(f"dir_bits must be in [0, 19], got {dir_bits}")
     m = min(m, cbvh.num_treelets)
     o, d, mt = _flat_rays(ray, max_t)
     n = o.shape[0]
@@ -729,6 +797,9 @@ def _binned_trace(ray: Ray, cbvh, max_t, m: int, any_hit: bool):
     n_tiles = npad // chunk
     lca_steps = max(1, int(math.ceil(math.log2(max(S, 2)))) + 1)
     octant = _octant(d)
+    mbits = 19 - dir_bits
+    # in-octant direction bits: the top dir_bits of |d|'s morton code
+    dk = morton3d(torch.abs(d)) >> (30 - dir_bits) if dir_bits else None
 
     bt = torch.full((n,), FLT_MAX, dtype=torch.float32, device=dev)
     bp = torch.full((n,), -1.0, dtype=torch.float32, device=dev)
@@ -749,7 +820,9 @@ def _binned_trace(ray: Ray, cbvh, max_t, m: int, any_hit: bool):
         # treelet-major (dead last), then octant, then entry-point morton
         op = o + d * ent_c[:, None]
         q = torch.clamp((op - root_lo) / ext, 0.0, 1.0)
-        mor = morton3d(q) >> 11          # 19 bits
+        mor = morton3d(q) >> (30 - mbits)
+        if dk is not None:
+            mor = (mor << dir_bits) | dk     # 19 bits in all
         skey = torch.where(live, torch.where(slot_r < 0, S, slot_r), S + 1)
         key = (skey << 22) | (octant << 19) | mor
         if npad > n:
@@ -775,7 +848,8 @@ def _binned_trace(ray: Ray, cbvh, max_t, m: int, any_hit: bool):
             rays, cbvh.nodes, cbvh.tris, cbvh.num_clusters,
             cbvh.cluster_size, tile_lanes=chunk, any_hit=any_hit,
             tile_roots=torch.stack([rootA, rootB]).contiguous(),
-            tile_splits=split.contiguous())
+            tile_splits=split.contiguous(),
+            **_tree_kw(cbvh, fanout, half_skip))
 
         # un-sort: lane i of the sorted layout is pair perm[i]
         def unsort(x):
@@ -795,18 +869,23 @@ def _binned_trace(ray: Ray, cbvh, max_t, m: int, any_hit: bool):
     return torch.stack([bt, bp, bu, bv], dim=1)
 
 
-def binned_closest_hit(ray: Ray, cbvh, mesh, max_t=FLT_MAX,
-                       m: int = BIN_M) -> HitRecord:
+def binned_closest_hit(ray: Ray, cbvh, mesh, max_t=FLT_MAX, m: int = BIN_M,
+                       fanout: int = 2, half_skip: bool = False,
+                       dir_bits: int = 0) -> HitRecord:
     """Closest hit via treelet binning."""
     if cbvh.treelet_size <= 0:
         raise ValueError("binned traversal needs a treelet-built ClusterBVH")
-    outs = _traced(lambda: _binned_trace(ray, cbvh, max_t, m, any_hit=False))
+    outs = _traced(lambda: _binned_trace(ray, cbvh, max_t, m, False, fanout,
+                                         half_skip, dir_bits))
     return _closest_record(outs, ray, mesh)
 
 
-def binned_any_hit(ray: Ray, cbvh, mesh, max_t, m: int = BIN_M) -> HitRecord:
+def binned_any_hit(ray: Ray, cbvh, mesh, max_t, m: int = BIN_M,
+                   fanout: int = 2, half_skip: bool = False,
+                   dir_bits: int = 0) -> HitRecord:
     """Occlusion query via treelet binning (any pair hit occludes)."""
     if cbvh.treelet_size <= 0:
         raise ValueError("binned traversal needs a treelet-built ClusterBVH")
-    outs = _traced(lambda: _binned_trace(ray, cbvh, max_t, m, any_hit=True))
+    outs = _traced(lambda: _binned_trace(ray, cbvh, max_t, m, True, fanout,
+                                         half_skip, dir_bits))
     return _any_record(outs, ray, mesh)
