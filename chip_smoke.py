@@ -6,15 +6,18 @@
 Phases, each of which fails the run (non-zero exit) when it fails:
 
 1. Device: the card's name and power limit (nvidia-smi), torch and CUDA
-   versions, and the nvcc build of ops/cuda/traverse.cu (seconds, ptxas
-   report).
-2. Kernel vs plain version, per traversal mode, on launches captured from
-   the real 1080p frame (sponza-class scene, 259,656 triangles, K=32,
-   T=128): coherent closest-hit, binned two-pass closest-hit, binned
-   two-pass any-hit, coherent any-hit.  Each is compared on >= 8192 lanes
-   (binned modes: tiles that straddle two treelet segments and tiles with
-   dead lanes) and timed at the full launch; the kernel's counters size
-   the bound.
+   versions, and the nvcc build of ops/cuda/traverse.cu and
+   traverse_binned.cu, one nvcc each, started together (seconds; ptxas'
+   registers, shared memory, stack and spills of the main path's forms).
+2. Kernel vs plain version, per traversal mode, on every launch captured
+   from the real 1080p frame (sponza-class scene, 259,656 triangles, K=32,
+   T=128): coherent closest-hit and any-hit (traverse.cu), binned two-pass
+   closest-hit and any-hit (traverse_binned.cu).  The first, a middle and
+   the last launch of each mode are compared on >= 8192 lanes each (binned
+   modes: tiles that straddle two treelet segments, the tile where live
+   lanes end, then tiles with live lanes); every launch is timed, and its
+   counters size its bound; the per-frame sums are reported beside the
+   first launch.
 3. The slice: ClusterBVH built on the card, then the 1920x1080, 1 spp,
    5-bounce NEE frame in bench.py's 64-px block swizzle; one warm frame,
    then timed frames.  Launch counts are reset just before the first
@@ -66,6 +69,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import json
+import re
 import subprocess
 import sys
 import time
@@ -104,6 +108,7 @@ PEAK_BYTES_S, PEAK_F32_S = 3.35e12, 67e12
 FLOP_TRI, FLOP_BOX = 40, 20      # ops of one triangle / one box test
 REPLACES = "visionaray_tpu/ops/pallas/traverse.py:557"
 SOURCE = "visionaray_torch/ops/cuda/traverse.cu"
+SOURCE_BINNED = "visionaray_torch/ops/cuda/traverse_binned.cu"
 MODES = [  # (mode key, kernel name, table row) of the treelet frame
     ("closest", "traverse_closest", "1"),
     ("binned_closest", "traverse_binned_closest", "1b"),
@@ -158,11 +163,15 @@ def cuda_ms(fn, reps):
 
 class LaunchRecorder:
     """Stands in for traverse.cluster_traverse during the warm frame and
-    keeps a copy of the inputs of the first launch of each mode."""
+    keeps a copy of the inputs of every launch, by mode, in launch order."""
 
     def __init__(self, fn):
         self.fn = fn
-        self.first = {}
+        self.launches = {}
+
+    @property
+    def first(self):
+        return {mode: lns[0] for mode, lns in self.launches.items()}
 
     def __call__(self, rays, nodes, tris, num_clusters, cluster_size,
                  tile_lanes, any_hit=False, tile_roots=None,
@@ -170,12 +179,11 @@ class LaunchRecorder:
                  fanout=2, half_skip=False):
         mode = trav.launch_mode(heap, num_clusters, tile_roots is not None,
                                 any_hit)
-        if mode not in self.first:
-            self.first[mode] = dict(
-                rays=rays.clone(), tile_lanes=tile_lanes, any_hit=any_hit,
-                roots=None if tile_roots is None else tile_roots.clone(),
-                splits=None if tile_splits is None else tile_splits.clone(),
-                fanout=fanout, half_skip=half_skip)
+        self.launches.setdefault(mode, []).append(dict(
+            rays=rays.clone(), tile_lanes=tile_lanes, any_hit=any_hit,
+            roots=None if tile_roots is None else tile_roots.clone(),
+            splits=None if tile_splits is None else tile_splits.clone(),
+            fanout=fanout, half_skip=half_skip))
         return self.fn(rays, nodes, tris, num_clusters, cluster_size,
                        tile_lanes, any_hit, tile_roots, tile_splits,
                        counters, heap=heap, depth=depth, fanout=fanout,
@@ -230,7 +238,8 @@ def full_tiles(launch):
 def compare_tiles(rays, roots, splits, tl):
     """Tile indices for the kernel-vs-plain comparison: straddling
     (two-pass) tiles, the tile where live lanes end and dead lanes begin,
-    and the middle of the launch, at least COMPARE_LANES lanes in all."""
+    then tiles with live lanes from the middle of those on, at least
+    COMPARE_LANES lanes in all."""
     n_tiles = rays.shape[0] // tl
     live = (rays[:, 6] >= 0).reshape(n_tiles, tl)
     picked = []
@@ -238,11 +247,12 @@ def compare_tiles(rays, roots, splits, tl):
     picked += straddle[:: max(1, len(straddle) // 4)][:4]
     mixed = torch.nonzero(live.any(1) & ~live.all(1)).reshape(-1).tolist()
     picked += mixed[-1:]
-    mid = n_tiles // 2
-    while len(set(picked)) * tl < COMPARE_LANES and \
-            len(set(picked)) < n_tiles:
-        picked.append(mid % n_tiles)
-        mid += 1
+    live_tiles = torch.nonzero(live.any(1)).reshape(-1).tolist()
+    half = len(live_tiles) // 2
+    for t in live_tiles[half:] + live_tiles[:half] + list(range(n_tiles)):
+        if len(set(picked)) * tl >= COMPARE_LANES:
+            break
+        picked.append(t)
     return sorted(set(picked)), len(straddle), len(mixed)
 
 
@@ -253,16 +263,72 @@ def sub_launch(rays, roots, splits, tl, tiles):
             splits[idx].contiguous())
 
 
-def check_mode(key, name, row, launch, bvh, launches):
-    """Kernel vs plain version on a captured launch, relaunched in the form
-    (fanout, half_skip) it was captured with."""
-    rays, roots, splits, tl = full_tiles(launch)
-    any_hit = launch["any_hit"]
-    binned = launch["roots"] is not None
-    C, Kc = bvh.num_clusters, bvh.cluster_size
-    fanout, half_skip = launch["fanout"], launch["half_skip"]
+def ptxas_report(log):
+    """Per kernel form in nvcc's ptxas output: registers, shared memory,
+    stack frame and spill bytes, keyed by a readable form name."""
+    forms, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = form_name(m.group(1))
+            forms[name] = dict(regs=0, smem=0, stack=0, spill=0)
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            forms[name].update(stack=int(m.group(1)),
+                               spill=int(m.group(2)) + int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            forms[name]["regs"] = int(m.group(1))
+            sm = re.search(r"(\d+) bytes smem", line)
+            forms[name]["smem"] = int(sm.group(1)) if sm else 0
+    return forms
 
-    def kernel(r, ro, sp, counters=None):
+
+def form_name(mangled):
+    """``binned any=0 count=0 fanout=2 half=0 K=32`` or ``traverse any=0
+    count=0 heap=1 fanout=2 half=0`` from a kernel's mangled name."""
+    m = re.search(r"binned_kernelILb(\d)ELb(\d)ELi(\d)ELb(\d)ELi(\d+)E",
+                  mangled)
+    if m:
+        return ("binned any={} count={} fanout={} half={} K={}"
+                .format(*m.groups()))
+    m = re.search(r"traverse_kernelILb(\d)ELb(\d)ELb(\d)ELi(\d)ELb(\d)E",
+                  mangled)
+    if m:
+        return ("traverse any={} count={} heap={} fanout={} half={}"
+                .format(*m.groups()))
+    return mangled
+
+
+def ptxas_lines(log, main_path=False):
+    """One line per kernel form; ``main_path``: only the non-counting forms
+    that the main path's frame and its 1f options run (K=32, heap)."""
+    out = []
+    for name, f in ptxas_report(log).items():
+        if main_path and ("count=1" in name or "heap=0" in name
+                          or ("binned" in name and "K=32" not in name)):
+            continue
+        out.append(f"{name}: {f['regs']} registers, {f['smem']} B smem, "
+                   f"{f['stack']} B stack, {f['spill']} B spills")
+    return out
+
+
+def check_mode(key, name, row, launches, bvh, count):
+    """Kernel vs plain version on the captured launches of one mode,
+    relaunched in the form (fanout, half_skip) they were captured with:
+    the first, a middle and the last launch compared on a subset of tiles;
+    every launch timed, its counters sizing its bound."""
+    first = launches[0]
+    any_hit = first["any_hit"]
+    binned = first["roots"] is not None
+    C, Kc = bvh.num_clusters, bvh.cluster_size
+    fanout, half_skip = first["fanout"], first["half_skip"]
+
+    def kernel(r, ro, sp, tl, counters=None):
         return trav.cluster_traverse(
             r, bvh.nodes, bvh.tris, C, Kc, tile_lanes=tl, any_hit=any_hit,
             tile_roots=ro if binned else None,
@@ -270,74 +336,100 @@ def check_mode(key, name, row, launch, bvh, launches):
             heap=bvh.heap, depth=bvh.depth, fanout=fanout,
             half_skip=half_skip)
 
-    def plain(r, ro, sp):
+    def plain(r, ro, sp, tl):
         return trav.traverse_plain(r, bvh.nodes, bvh.tris, C, Kc, tl,
                                    any_hit, ro, sp, heap=bvh.heap)
 
-    # correctness on a subset of tiles
-    tiles, n_straddle, n_mixed = compare_tiles(rays, roots, splits, tl)
-    sr, sro, ssp = sub_launch(rays, roots, splits, tl, tiles)
-    kt, kp, ku, kv = kernel(sr, sro, ssp)
-    pt, pp, pu, pv = plain(sr, sro, ssp)
-    torch.cuda.synchronize()
-    live = sr[:, 6] >= 0
-    kh, ph = kp >= 0, pp >= 0
-    hit_mm = int((live & (kh != ph)).sum())
-    n_live = int(live.sum())
-    if any_hit:
-        prim_mm = 0
-        max_rel = 0.0
-        max_abs = float((kh != ph).float().max())
-    else:
-        both = live & kh & ph
-        same = both & (kp == pp)
-        prim_mm = int((both & (kp != pp) & (kt != pt)).sum())
-        dt = (kt - pt).abs()[same]
-        max_abs = float(dt.max()) if dt.numel() else 0.0
-        rel = dt / pt.abs()[same].clamp_min(1e-30)
-        max_rel = float(rel.max()) if rel.numel() else 0.0
-        uv = torch.maximum((ku - pu).abs(), (kv - pv).abs())[same]
-        max_abs = max(max_abs, float(uv.max()) if uv.numel() else 0.0)
-    plain_ms = cuda_ms(lambda: plain(sr, sro, ssp), 1)
-    kernel_cmp_ms = cuda_ms(lambda: kernel(sr, sro, ssp), 5)
+    # correctness on a subset of tiles of the first, a middle and the last
+    # launch
+    compared = sorted({0, len(launches) // 2, len(launches) - 1})
+    hit_mm = prim_mm = n_live = n_lanes = n_straddle = n_mixed = 0
+    max_rel = max_abs = 0.0
+    for idx in compared:
+        rays, roots, splits, tl = full_tiles(launches[idx])
+        tiles, straddle, mixed = compare_tiles(rays, roots, splits, tl)
+        sr, sro, ssp = sub_launch(rays, roots, splits, tl, tiles)
+        kt, kp, ku, kv = kernel(sr, sro, ssp, tl)
+        pt, pp, pu, pv = plain(sr, sro, ssp, tl)
+        torch.cuda.synchronize()
+        live = sr[:, 6] >= 0
+        kh, ph = kp >= 0, pp >= 0
+        hit_mm += int((live & (kh != ph)).sum())
+        n_live += int(live.sum())
+        n_lanes += sr.shape[0]
+        n_straddle += straddle
+        n_mixed += mixed
+        if any_hit:
+            max_abs = max(max_abs, float((kh != ph).float().max()))
+        else:
+            both = live & kh & ph
+            same = both & (kp == pp)
+            prim_mm += int((both & (kp != pp) & (kt != pt)).sum())
+            dt = (kt - pt).abs()[same]
+            rel = dt / pt.abs()[same].clamp_min(1e-30)
+            uv = torch.maximum((ku - pu).abs(), (kv - pv).abs())[same]
+            if dt.numel():
+                max_abs = max(max_abs, float(dt.max()), float(uv.max()))
+                max_rel = max(max_rel, float(rel.max()))
+        if idx == 0:
+            plain_ms = cuda_ms(lambda: plain(sr, sro, ssp, tl), 1)
+            kernel_cmp_ms = cuda_ms(lambda: kernel(sr, sro, ssp, tl), 5)
 
-    # full launch: time and counters
-    ms = cuda_ms(lambda: kernel(rays, roots, splits), 5)
-    counters = torch.zeros((rays.shape[0], 2), dtype=torch.int32,
-                           device=rays.device)
-    kernel(rays, roots, splits, counters)
-    tot = counters.sum(0, dtype=torch.int64).tolist()
-    npad = rays.shape[0]
-    bytes_moved = (npad * 8 * 4 + bvh.nodes.numel() * 4
-                   + bvh.tris.numel() * 4 + roots.numel() * 4
-                   + splits.numel() * 4 + 4 * npad * 4)
-    ops = FLOP_TRI * tot[1] + FLOP_BOX * tot[0]
-    t_bytes = bytes_moved / PEAK_BYTES_S * 1e3
-    t_ops = ops / PEAK_F32_S * 1e3
+    # every launch: time, counters, bound
+    launch_ms, bounds, live_lanes, tests = [], [], [], [0, 0]
+    for idx, ln in enumerate(launches):
+        rays, roots, splits, tl = full_tiles(ln)
+        npad = rays.shape[0]
+        launch_ms.append(cuda_ms(lambda: kernel(rays, roots, splits, tl), 5))
+        counters = torch.zeros((npad, 2), dtype=torch.int32,
+                               device=rays.device)
+        kernel(rays, roots, splits, tl, counters)
+        tot = counters.sum(0, dtype=torch.int64).tolist()
+        tests[0] += tot[0]
+        tests[1] += tot[1]
+        bytes_moved = (npad * 8 * 4 + bvh.nodes.numel() * 4
+                       + bvh.tris.numel() * 4 + roots.numel() * 4
+                       + splits.numel() * 4 + 4 * npad * 4)
+        ops = FLOP_TRI * tot[1] + FLOP_BOX * tot[0]
+        bounds.append((bytes_moved / PEAK_BYTES_S * 1e3,
+                       ops / PEAK_F32_S * 1e3))
+        live_lanes.append(int((rays[:, 6] >= 0).sum()))
+    t_bytes, t_ops = bounds[0]
+    bound_frame = sum(max(b) for b in bounds)
+    ms_frame = sum(launch_ms)
     ok = (hit_mm + prim_mm <= MISMATCH_SHARE * max(n_live, 1)
           and max_rel <= T_RTOL)
-    log(f"kernel {row} {name} (fanout={fanout} half_skip={half_skip}): "
-        f"compare_lanes={sr.shape[0]} live={n_live} "
-        f"tiles={len(tiles)} straddling_tiles_in_launch={n_straddle} "
-        f"live_dead_tiles_in_launch={n_mixed} hit_mismatch={hit_mm} "
-        f"prim_mismatch_unique={prim_mm} max_rel_t={max_rel:.3e} "
-        f"kernel_ms_compare={kernel_cmp_ms:.4f} plain_ms={plain_ms:.3f} | "
-        f"full launch lanes={npad} live={int((rays[:, 6] >= 0).sum())} "
-        f"ms={ms:.4f} box_tests={tot[0]} tri_tests={tot[1]} "
-        f"bound_ms={max(t_bytes, t_ops):.4f} "
-        f"({'bytes' if t_bytes >= t_ops else 'operations'}) "
-        f"{'OK' if ok else 'FAIL'}")
+    src = SOURCE_BINNED if binned else SOURCE
+    log(f"kernel {row} {name} (fanout={fanout} half_skip={half_skip}) "
+        f"[{src.rsplit('/', 1)[1]}]: compared launches {compared} "
+        f"lanes={n_lanes} live={n_live} straddling_tiles_in_launches="
+        f"{n_straddle} live_dead_tiles_in_launches={n_mixed} "
+        f"hit_mismatch={hit_mm} prim_mismatch_unique={prim_mm} "
+        f"max_rel_t={max_rel:.3e} kernel_ms_compare={kernel_cmp_ms:.4f} "
+        f"plain_ms={plain_ms:.3f} | first launch lanes="
+        f"{first['rays'].shape[0]} live={live_lanes[0]} ms={launch_ms[0]:.4f}"
+        f" bound_ms={max(t_bytes, t_ops):.4f} "
+        f"({'bytes' if t_bytes >= t_ops else 'operations'}) | "
+        f"{len(launches)} launches: ms_sum={ms_frame:.4f} "
+        f"bound_ms_sum={bound_frame:.4f} box_tests={tests[0]} "
+        f"tri_tests={tests[1]} {'OK' if ok else 'FAIL'}")
+    if len(launches) > 1:
+        log(f"  launch ms {[round(t, 4) for t in launch_ms]} live lanes "
+            f"{live_lanes}")
     entry = {
-        "name": name, "route": "cuda", "source": SOURCE,
+        "name": name, "route": "cuda", "source": src,
         "replaces": REPLACES, "mode": row, "mode_key": key,
-        "launches": launches.get(key, 0),
-        "max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms,
+        "launches": count.get(key, 0),
+        "max_abs_err": max_abs, "ms": launch_ms[0], "plain_ms": plain_ms,
         "bound_ms": max(t_bytes, t_ops),
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-        "library_ms": None, "lanes": npad, "compare_lanes": sr.shape[0],
+        "library_ms": None, "lanes": first["rays"].shape[0],
+        "ms_frame": ms_frame, "bound_ms_frame": bound_frame,
+        "launch_ms": launch_ms, "launch_live_lanes": live_lanes,
+        "compared_launches": compared, "compare_lanes": n_lanes,
         "kernel_ms_compare": kernel_cmp_ms, "hit_mismatch": hit_mm,
         "prim_mismatch_unique": prim_mm, "max_rel_t": max_rel,
-        "box_tests": tot[0], "tri_tests": tot[1],
+        "box_tests": tests[0], "tri_tests": tests[1],
         "variant": trav.variant_key(key, fanout, half_skip),
     }
     return ok, entry
@@ -663,7 +755,7 @@ def profile_run(run, label, table_path=None):
     dev_rows = sorted((e for e in ka
                        if e.device_type == torch.autograd.DeviceType.CUDA),
                       key=dev_us, reverse=True)
-    groups = {"traverse_kernel": ("traverse_kernel",),
+    groups = {"traverse_kernel": ("traverse_kernel", "binned_kernel"),
               "sort": ("Sort", "sort", "Radix", "radix"),
               "gather_scatter": ("gather", "index", "scatter", "Index"),
               "reduce": ("reduce_kernel",),
@@ -705,9 +797,11 @@ def main() -> int:
     trav._library()
     info = trav.BUILD_INFO
     log(f"kernel build: {info['seconds']:.2f} s -> {info['path']}")
-    for line in info["log"].splitlines():
-        if "registers" in line or "spill" in line or "error" in line:
-            log("  nvcc: " + line.strip())
+    for line in ptxas_lines(info["log"], main_path=True):
+        log("  ptxas: " + line)
+    spills = [n for n, f in ptxas_report(info["log"]).items() if f["spill"]]
+    log(f"  forms with spills ({len(spills)} of "
+        f"{len(ptxas_report(info['log']))}): {spills}")
 
     all_ok = True
     entries = []
@@ -719,7 +813,7 @@ def main() -> int:
                 log(f"FAIL: mode {key} was never launched by its frame")
                 ok = False
                 continue
-            good, entry = check_mode(key, name, row, rec.first[key], bvh,
+            good, entry = check_mode(key, name, row, rec.launches[key], bvh,
                                      launches)
             ok &= good
             entries.append(entry)

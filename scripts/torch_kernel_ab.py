@@ -1,22 +1,30 @@
-"""A/B of versions of the port's traversal kernel source on one GPU.
+"""A/B of versions of the port's traversal kernels on one GPU.
 
-    python3 scripts/torch_kernel_ab.py NAME=PATH.cu [NAME=PATH.cu ...]
+    python3 scripts/torch_kernel_ab.py NAME=PATH[,FLAG...] [NAME=PATH ...]
 
-Builds each source with the port's nvcc flags, captures the first launch
-of each main-path mode (1, 1b, 1c, 1d) from the 1080p frame of
-chip_smoke.py, and times every version on those launches in turns (four
-rounds, the order rotated each round), binary descent without the
-half-cluster skip.  Prints per mode the least and the mean ms per launch
-of each version, whether each version's outputs equal the first one's, and
-whether the SASS (cuobjdump) of each binary-descent instantiation equals
-the first version's.  A source whose entry point predates the fanout and
-half_skip arguments is called without them.
+PATH is a kernel source (.cu) or a directory of them (the port's
+``visionaray_torch/ops/cuda``, or a parent's, unpacked with ``git archive``
+into the git-ignored ``build/``); FLAGs are extra nvcc flags, e.g.
+``-DNAME=VALUE``.  Every version is built with the port's nvcc flags, all
+builds at once.  The script captures every traversal launch of
+chip_smoke.py's 1080p frame (modes 1, 1b, 1c, 1d) and times every version
+on each of them in turns (ROUNDS rounds, the order rotated each round), in
+the main path's form (binary descent, no half-cluster skip); a version with
+``vsnray_traverse_binned`` takes the two-pass launches there.  Prints:
+
+- per mode, the least and the mean over rounds of the first launch's ms
+  and of the ms summed over the frame's launches (24 of 1b, 12 of 1c);
+- whether each version's outputs equal the first version's on every launch
+  (closest-hit: t, prim, u, v; any-hit: the hit flag);
+- registers, shared memory and spills (ptxas) of each version's main-path
+  forms, and whether the SASS of each non-counting traverse.cu form
+  (coherent and radix) equals the first version's.
 """
 
-import ctypes
 import re
 import subprocess
 import sys
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import torch
@@ -31,49 +39,97 @@ from visionaray_torch.sched.render import render_pixels  # noqa: E402
 
 BUILD = Path(__file__).resolve().parents[1] / "build" / "kernel_ab"
 ROUNDS = 4
+BINNED = ("binned_closest", "binned_any")
 
 
-def build(name, src):
-    """(library, takes the 1f arguments, {instantiation: SASS lines})."""
-    BUILD.mkdir(parents=True, exist_ok=True)
-    so = BUILD / f"{name}.so"
-    out = subprocess.run([trav._nvcc(), *trav.NVCC_FLAGS, "-o", str(so),
-                          str(src)], capture_output=True, text=True)
-    if out.returncode:
-        raise RuntimeError(f"nvcc failed on {src}:\n{out.stderr}")
-    wide = "int half_skip" in Path(src).read_text()
-    lib = ctypes.CDLL(str(so))
-    lib.vsnray_traverse.argtypes = ([ctypes.c_void_p] * 10
-                                    + [ctypes.c_int] * (9 if wide else 7)
-                                    + [ctypes.c_void_p])
-    lib.vsnray_traverse.restype = ctypes.c_int
-    cuobjdump = Path(trav._nvcc()).with_name("cuobjdump")
-    sass = subprocess.run([str(cuobjdump), "-sass", str(so)],
-                          capture_output=True, text=True, check=True).stdout
-    kernels = {}
-    for body in re.split(r"\n\s*Function : ", sass)[1:]:
-        m = re.search(r"traverse_kernelILb(\d)ELb(\d)ELb(\d)E(?:Li(\d)ELb(\d)E)?",
-                      body.split("\n", 1)[0])
-        if m and m.group(4) in (None, "2") and m.group(5) in (None, "0"):
-            kernels["any{}_count{}_heap{}".format(*m.groups()[:3])] = [
-                re.sub(r"/\*[0-9a-f]{4}\*/", "", line).split(";")[0].strip()
-                for line in body.splitlines()
-                if re.match(r"\s+/\*[0-9a-f]{4}\*/", line)]
-    return lib, wide, kernels
+class Version:
+    """One built version: its library and what its entry points take."""
+
+    def __init__(self, name, spec):
+        path, *flags = spec.split(",")
+        path = Path(path)
+        self.name = name
+        self.sources = sorted(path.glob("*.cu")) if path.is_dir() else [path]
+        text = "".join(p.read_text() for p in self.sources)
+        self.wide = "int half_skip" in text       # takes fanout, half_skip
+        self.binned = "vsnray_traverse_binned" in text
+        self.dir = BUILD / name
+        self.flags = [*trav.NVCC_FLAGS, *flags]
+
+    def build(self):
+        so = trav.build_library(self.sources, self.dir, self.flags)
+        self.log = (self.dir / "nvcc.log").read_text()
+        if self.binned:
+            self.lib = trav.bind_library(so)
+        else:
+            import ctypes
+            self.lib = ctypes.CDLL(str(so))
+            self.lib.vsnray_traverse.argtypes = (
+                [ctypes.c_void_p] * 10
+                + [ctypes.c_int] * (9 if self.wide else 7)
+                + [ctypes.c_void_p])
+            self.lib.vsnray_traverse.restype = ctypes.c_int
+        cuobjdump = Path(trav._nvcc()).with_name("cuobjdump")
+        sass = subprocess.run([str(cuobjdump), "-sass", str(so)],
+                              capture_output=True, text=True,
+                              check=True).stdout
+        self.sass = {}
+        for body in re.split(r"\n\s*Function : ", sass)[1:]:
+            m = re.search(r"traverse_kernelILb(\d)ELb(\d)ELb(\d)E"
+                          r"(?:Li(\d)ELb(\d)E)?", body.split("\n", 1)[0])
+            if m and m.group(2) == "0":
+                self.sass["any{}_heap{}_fanout{}_half{}".format(
+                    m.group(1), m.group(3), m.group(4) or 2,
+                    m.group(5) or 0)] = [
+                    re.sub(r"/\*[0-9a-f]{4}\*/", "", line).split(";")[0]
+                    .strip() for line in body.splitlines()
+                    if re.match(r"\s+/\*[0-9a-f]{4}\*/", line)]
+        return self
+
+    def call(self, launch, bvh):
+        """One launch in the main path's form."""
+        rays, roots, splits, tl = cs.full_tiles(launch)
+        npad = rays.shape[0]
+        dev = rays.device
+        outs = [torch.empty(npad, device=dev) for _ in range(4)]
+        ptrs = [rays.data_ptr(), bvh.nodes.data_ptr(), bvh.tris.data_ptr(),
+                roots.data_ptr(), splits.data_ptr(),
+                *[o.data_ptr() for o in outs], None]
+        ints = [npad, npad // tl, tl, bvh.num_clusters, bvh.cluster_size,
+                int(launch["any_hit"])]
+        stream = torch.cuda.current_stream().cuda_stream
+        if self.binned and launch["roots"] is not None:
+            err = self.lib.vsnray_traverse_binned(*ptrs, *ints, 2, 0, stream)
+        else:
+            err = self.lib.vsnray_traverse(
+                *ptrs, *ints, 1, *([2, 0] if self.wide else []), stream)
+        if err:
+            raise RuntimeError(f"{self.name}: launch failed, cudaError {err}")
+        return outs
+
+
+def same_outputs(a, b, any_hit):
+    if any_hit:
+        return torch.equal(a[1] >= 0, b[1] >= 0)
+    return all(torch.equal(x, y) for x, y in zip(a, b))
 
 
 def main() -> int:
     if not torch.cuda.is_available():
         print("torch_kernel_ab: needs a CUDA GPU", file=sys.stderr)
         return 2
-    variants = dict(a.split("=", 1) for a in sys.argv[1:])
-    names = list(variants)
-    built = {n: build(n, p) for n, p in variants.items()}
-    first = names[0]
-    for n in names:
-        sizes = " ".join(f"{k}:{len(v)}" for k, v in sorted(built[n][2].items()))
-        same = all(built[n][2].get(k) == v for k, v in built[first][2].items())
-        print(f"{n}: SASS instructions {sizes}; equal to {first}'s: {same}")
+    versions = [Version(*a.split("=", 1)) for a in sys.argv[1:]]
+    with ThreadPoolExecutor(len(versions)) as pool:
+        versions = list(pool.map(Version.build, versions))
+    first = versions[0]
+    for v in versions:
+        same = {k: v.sass.get(k) == s for k, s in first.sass.items()}
+        print(f"{v.name}: SASS of {len(v.sass)} non-counting traverse.cu "
+              f"forms; equal to {first.name}'s: {sum(same.values())}/"
+              f"{len(same)}" + ("" if all(same.values()) else
+                                f" (differ: {[k for k, s in same.items() if not s]})"))
+        for line in cs.ptxas_lines(v.log):
+            print(f"  {v.name} ptxas {line}")
 
     dev = torch.device("cuda")
     with torch.no_grad():
@@ -88,39 +144,34 @@ def main() -> int:
         with cs.recorded(rec):
             render_pixels(params, cam, x, y, cs.WIDTH, cs.HEIGHT,
                           "pathtracing", cs.SPP, "jittered_blend", 1, nee=True)
+        for key in BINNED:
+            print(f"{key}: {len(rec.launches[key])} launches, live lanes "
+                  f"{[int((ln['rays'][:, 6] >= 0).sum()) for ln in rec.launches[key]]}")
 
-        def call(n, launch):
-            lib, wide, _ = built[n]
-            rays, roots, splits, tl = cs.full_tiles(launch)
-            npad = rays.shape[0]
-            outs = [torch.empty(npad, device=dev) for _ in range(4)]
-            args = [rays.data_ptr(), bvh.nodes.data_ptr(), bvh.tris.data_ptr(),
-                    roots.data_ptr(), splits.data_ptr(),
-                    *[o.data_ptr() for o in outs], None, npad, npad // tl, tl,
-                    bvh.num_clusters, bvh.cluster_size,
-                    int(launch["any_hit"]), 1] + ([2, 0] if wide else [])
-            err = lib.vsnray_traverse(*args,
-                                      torch.cuda.current_stream().cuda_stream)
-            if err:
-                raise RuntimeError(f"{n}: launch failed, cudaError {err}")
-            return outs
-
-        times = {}
+        first_ms, frame_ms = {}, {}
         for rnd in range(ROUNDS):
-            for n in names[rnd % len(names):] + names[:rnd % len(names)]:
+            for v in versions[rnd % len(versions):] + \
+                    versions[:rnd % len(versions)]:
                 for key, _, _ in cs.MODES:
-                    times.setdefault((key, n), []).append(
-                        cs.cuda_ms(lambda: call(n, rec.first[key]), 5))
+                    times = [cs.cuda_ms(lambda: v.call(ln, bvh), 3)
+                             for ln in rec.launches[key]]
+                    first_ms.setdefault((key, v.name), []).append(times[0])
+                    frame_ms.setdefault((key, v.name), []).append(sum(times))
         for key, _, row in cs.MODES:
-            print(f"mode {row} ({key}) ms per launch, least/mean of {ROUNDS}: "
-                  + "  ".join(f"{n}={min(times[(key, n)]):.4f}/"
-                              f"{sum(times[(key, n)]) / ROUNDS:.4f}"
-                              for n in names))
-        ref = {k: call(first, rec.first[k]) for k, _, _ in cs.MODES}
-        for n in names[1:]:
-            same = all(torch.equal(a, b) for k, _, _ in cs.MODES
-                       for a, b in zip(call(n, rec.first[k]), ref[k]))
-            print(f"{n}: outputs equal to {first}'s: {same}")
+            n = len(rec.launches[key])
+            for label, table in (("first launch", first_ms),
+                                 (f"sum of {n} launches", frame_ms)):
+                print(f"mode {row} ({key}) ms, {label}, least/mean of "
+                      f"{ROUNDS}: " + "  ".join(
+                          f"{v.name}={min(table[(key, v.name)]):.4f}/"
+                          f"{sum(table[(key, v.name)]) / ROUNDS:.4f}"
+                          for v in versions))
+        for v in versions[1:]:
+            same = all(same_outputs(v.call(ln, bvh), first.call(ln, bvh),
+                                    ln["any_hit"])
+                       for key, _, _ in cs.MODES for ln in rec.launches[key])
+            print(f"{v.name}: outputs equal to {first.name}'s on every "
+                  f"launch: {same}")
     print(f"card: {cs.nvidia_smi_line()}")
     return 0
 

@@ -241,3 +241,158 @@ def test_wrapper_rejects_bad_inputs(scene):
     with pytest.raises(ValueError, match="nodes is on cpu"):
         trav.cluster_traverse(rays, bvh.nodes.cpu(), bvh.tris,
                               bvh.num_clusters, bvh.cluster_size, 4096)
+
+
+# the two-pass kernel (traverse_binned.cu): every (fanout, half_skip) form
+# at each compile-time K and at K=40 (its run-time-K form, the automatic
+# cluster size of a ~430k-triangle mesh); the half skip needs half boxes
+# (K >= 16)
+BINNED_KS = (*trav.BINNED_K, 40)
+BINNED_CASES = [(K, f, h) for K in BINNED_KS for f in trav.FANOUTS
+                for h in (False, True) if K >= 16 or not h]
+
+
+@pytest.fixture(scope="module")
+def k_bvhs(scene):
+    """The scene's mesh built at each K of BINNED_KS (T=16)."""
+    s, _ = scene
+    with torch.inference_mode():
+        return {K: build_cluster_bvh(s.mesh, cluster_size=K, treelet_size=16)
+                for K in BINNED_KS}
+
+
+def _edge_tiles(bvh, ray, seed=0):
+    """Four 2048-lane two-pass tiles: (0) the scene's rays, split at lane 48
+    so that warp 1 straddles pass A (a treelet root) and pass B (its
+    parent); (1) all lanes dead; (2) every lane aimed at a triangle of one
+    cluster, pass A starting at that cluster's leaf and pass B at its
+    treelet's root; (3) lane j aimed at a triangle of the (37 j)-th
+    non-empty cluster (mod their count) from the root, so that the lanes of
+    a warp sit in different clusters.
+    A third of the live lanes of tiles 0 and 3 have max_t cut short."""
+    dev = ray.ori.device
+    tl = trav.BINNED_ROWS * 128
+    rng = np.random.default_rng(seed)
+    C, K = bvh.num_clusters, bvh.cluster_size
+    rec = bvh.tri_records()
+    lo, hi = bvh.nodes[0, 0:3], bvh.nodes[0, 3:6]
+    # records of non-zero area (a cluster's padding records have none)
+    valid = torch.linalg.cross(rec[..., 3:6], rec[..., 6:9]).norm(dim=-1) \
+        > 1e-6
+    good = torch.nonzero(valid.any(1)).reshape(-1)
+
+    def aimed(clusters):
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        k = torch.multinomial(valid[clusters].float(), 1,
+                              generator=gen).reshape(-1)
+        r = rec[clusters, k]
+        w = torch.as_tensor(rng.uniform(0.1, 0.4, (clusters.shape[0], 2)),
+                            dtype=torch.float32, device=dev)
+        target = r[:, 0:3] + w[:, 0:1] * r[:, 3:6] + w[:, 1:2] * r[:, 6:9]
+        o = lo + (hi - lo) * torch.as_tensor(
+            rng.uniform(0.05, 0.95, (clusters.shape[0], 3)),
+            dtype=torch.float32, device=dev)
+        d = target - o
+        return o, d / d.norm(dim=-1, keepdim=True)
+
+    c_one = int(good[rng.integers(0, good.numel())])
+    o0, d0 = ray.ori[:tl], ray.dir[:tl]
+    o2, d2 = aimed(torch.full((tl,), c_one, device=dev))
+    o3, d3 = aimed(good[torch.arange(tl, device=dev) * 37 % good.numel()])
+    o = torch.cat([o0, o0, o2, o3])
+    d = torch.cat([d0, d0, d2, d3])
+    mt = torch.full((4 * tl,), 1e30, device=dev)
+    cut = torch.as_tensor(rng.random(4 * tl) < 1 / 3, device=dev)
+    mt = torch.where(cut, torch.as_tensor(rng.uniform(0.5, 4.0, 4 * tl),
+                                          dtype=torch.float32, device=dev),
+                     mt)
+    mt[tl:2 * tl] = -1.0
+    mt[2 * tl:3 * tl] = 1e30
+    rays = trav._pack_rays(o, d, mt, 4 * tl, 4 * tl, pad_maxt=-1.0)
+    troots = bvh.treelet_roots.tolist()
+    s_one = c_one // bvh.treelet_size
+    ta = troots[1]
+    roots = torch.tensor([[ta, 0, C - 1 + c_one, 0],
+                          [(ta - 1) // 2, 0, troots[s_one], 0]],
+                         dtype=torch.int32, device=dev)
+    splits = torch.tensor([48, tl, tl // 2, tl], dtype=torch.int32,
+                          device=dev)
+    return rays, roots, splits
+
+
+@pytest.mark.parametrize("any_hit", [False, True])
+@pytest.mark.parametrize("K,fanout,half_skip", BINNED_CASES)
+def test_binned_form_edge_tiles(scene, k_bvhs, K, fanout, half_skip,
+                                any_hit):
+    """traverse_binned.cu against the plain version on a straddling warp,
+    an all-dead tile, a tile on one cluster and a tile on many."""
+    _, ray = scene
+    bvh = k_bvhs[K]
+    rays, roots, splits = _edge_tiles(bvh, ray)
+    tl = trav.BINNED_ROWS * 128
+    mode = "binned_any" if any_hit else "binned_closest"
+    key = trav.variant_key(mode, fanout, half_skip)
+    before = trav.VARIANT_LAUNCHES.get(key, 0)
+    got = trav.cluster_traverse(rays, bvh.nodes, bvh.tris, bvh.num_clusters,
+                                K, tile_lanes=tl, any_hit=any_hit,
+                                tile_roots=roots, tile_splits=splits,
+                                fanout=fanout, half_skip=half_skip)
+    assert trav.VARIANT_LAUNCHES[key] == before + 1
+    ref = trav.traverse_plain(rays, bvh.nodes, bvh.tris, bvh.num_clusters,
+                              K, tl, any_hit, roots, splits)
+    _check(got, ref, rays, any_hit)
+    hit = (got[1] >= 0).reshape(4, tl)
+    assert not hit[1].any() and hit[2].all() and int(hit[3].sum()) > 100
+    # tile 2's pass A starts at its cluster's leaf and sees only its prims
+    c_one = int(roots[0, 2]) - (bvh.num_clusters - 1)
+    own = set(bvh.tri_records()[c_one, :, 9].tolist())
+    assert set(got[1].reshape(4, tl)[2, :tl // 2].tolist()) <= own
+
+
+@pytest.mark.parametrize("K,fanout,half_skip", BINNED_CASES)
+def test_binned_form_rounds(scene, k_bvhs, K, fanout, half_skip,
+                            monkeypatch):
+    """Real binned rounds, closest-hit and any-hit, at each K and form,
+    with the kernel's counters: every live lane tests something."""
+    _, ray = scene
+    bvh = k_bvhs[K]
+    calls = []
+    real = trav.cluster_traverse
+
+    def check(rays, nodes, tris, C, Kc, tile_lanes, any_hit=False,
+              tile_roots=None, tile_splits=None, counters=None, **tree):
+        npad = rays.shape[0]
+        cnt = torch.zeros((npad, 2), dtype=torch.int32, device=rays.device)
+        got = real(rays, nodes, tris, C, Kc, tile_lanes, any_hit, tile_roots,
+                   tile_splits, cnt, **tree)
+        ref = trav.traverse_plain(rays, nodes, tris, C, Kc, tile_lanes,
+                                  any_hit, tile_roots, tile_splits)
+        _check(got, ref, rays, any_hit)
+        live = rays[:, 6] >= 0
+        assert bool((cnt[live].sum(1) > 0).all())
+        assert not bool(cnt[~live].any())
+        calls.append(any_hit)
+        return got
+
+    monkeypatch.setattr(trav, "cluster_traverse", check)
+    mt = torch.full((ray.ori.shape[0],), 1e30, device=ray.ori.device)
+    with torch.inference_mode():
+        for any_hit in (False, True):
+            trav._binned_trace(ray, bvh, mt, 3, any_hit, fanout, half_skip)
+    assert False in calls and True in calls
+
+
+def test_binned_form_refusals(scene, k_bvhs):
+    """The two-pass kernel takes no half skip at K=8, and no K that is not
+    a multiple of 8."""
+    _, ray = scene
+    bvh = k_bvhs[8]
+    rays, roots, splits = _edge_tiles(bvh, ray)
+    tl = trav.BINNED_ROWS * 128
+    with pytest.raises(ValueError, match="half boxes"):
+        trav.cluster_traverse(rays, bvh.nodes, bvh.tris, bvh.num_clusters,
+                              8, tl, tile_roots=roots, tile_splits=splits,
+                              half_skip=True)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        trav.cluster_traverse(rays, bvh.nodes, bvh.tris, bvh.num_clusters,
+                              12, tl, tile_roots=roots, tile_splits=splits)

@@ -3,8 +3,10 @@ version, and the glue around them (port of ops/pallas/traverse.py).
 
 Every traversal of the path tracer goes through ``cluster_traverse``:
 
-- on CUDA tensors it launches ``ops/cuda/traverse.cu`` (built with nvcc at
-  first use into ``build/visionaray_torch/<source hash>/``, loaded with
+- on CUDA tensors it launches a kernel of ``ops/cuda/`` (``traverse.cu``
+  for coherent tiles and radix trees, ``traverse_binned.cu`` for the
+  two-pass tiles of the binned path; both built with nvcc at first use into
+  one library under ``build/visionaray_torch/<source hash>/``, loaded with
   ctypes) and adds one to ``LAUNCHES[mode]``;
 - on CPU tensors it runs ``traverse_plain``, a brute-force Moeller-Trumbore
   of each lane against every cluster under its start node.  It does not
@@ -62,8 +64,11 @@ from visionaray_torch.ops.lbvh import morton3d
 
 TILE_ROWS = 32       # coherent path: tile = TILE_ROWS * 128 lanes
 INTERLEAVE = 2       # tiles per TPU grid step; fixes the padding granule
-STACK_DEPTH = 64     # kernel stack entries; see stack_need
+STACK_DEPTH = 64     # the kernels' stack entries; see stack_need
 FANOUTS = (2, 4, 8)  # descent widths of the kernel (JAX _SORT_NET keys)
+# the cluster sizes whose record loop traverse_binned.cu unrolls; it takes
+# any other multiple of 8 through one run-time-K form
+BINNED_K = (8, 16, 32)
 _INV_CLAMP = 1e18    # 1/d is clamped to +-1e18
 BIN_M = 6            # treelet slots per ray on the binned closest path
 BINNED_ROWS = 16     # binned path: tile = BINNED_ROWS * 128 lanes
@@ -86,11 +91,12 @@ LAUNCHES = {"closest": 0, "any": 0, "binned_closest": 0, "binned_any": 0,
 # form of the kernel each launch ran.
 VARIANT_LAUNCHES: dict = {}
 
-_SRC = Path(__file__).resolve().parent / "cuda" / "traverse.cu"
+_CUDA_DIR = Path(__file__).resolve().parent / "cuda"
+SOURCES = (_CUDA_DIR / "traverse.cu", _CUDA_DIR / "traverse_binned.cu")
 _BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / \
     "visionaray_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3",
-              "-std=c++17", "-fmad=false", "-Xptxas", "-v", "-shared",
+              "-std=c++17", "-fmad=false", "-Xptxas", "-v",
               "-Xcompiler", "-fPIC"]
 # filled by the first build or load: seconds, library path, nvcc's output
 BUILD_INFO: dict = {}
@@ -120,36 +126,71 @@ def _nvcc() -> str:
     return found
 
 
+def build_library(sources, out_dir: Path, flags=NVCC_FLAGS) -> Path:
+    """Compile ``sources`` with nvcc, one process per source, all started
+    together, and link them into ``out_dir/libvsnray_traverse.so``; nvcc's
+    output (ptxas' registers, shared memory and spills) goes to
+    ``out_dir/nvcc.log``."""
+    out_dir.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    jobs = []
+    for src in sources:
+        obj = out_dir / f"{Path(src).stem}.{os.getpid()}.o"
+        jobs.append((src, obj, subprocess.Popen(
+            [nvcc, *flags, "-c", "-o", str(obj), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    log, failed = [], []
+    for src, obj, proc in jobs:
+        out = proc.communicate()[0]
+        log.append(f"== {Path(src).name}\n{out}")
+        if proc.returncode != 0:
+            failed.append(f"{src}:\n{out}")
+    (out_dir / "nvcc.log").write_text("".join(log))
+    if failed:
+        raise RuntimeError("nvcc failed on " + "\n".join(failed))
+    tmp = out_dir / f"libvsnray_traverse.{os.getpid()}.tmp.so"
+    link = subprocess.run([nvcc, "-shared", "-o", str(tmp),
+                           *[str(obj) for _, obj, _ in jobs]],
+                          capture_output=True, text=True)
+    for _, obj, _ in jobs:
+        obj.unlink()
+    if link.returncode != 0:
+        raise RuntimeError(f"nvcc failed to link:\n{link.stderr}")
+    lib_path = out_dir / "libvsnray_traverse.so"
+    os.replace(tmp, lib_path)
+    return lib_path
+
+
+def bind_library(lib_path) -> ctypes.CDLL:
+    """Load a built library and declare its entry points' arguments."""
+    lib = ctypes.CDLL(str(lib_path))
+    lib.vsnray_traverse.argtypes = [ctypes.c_void_p] * 10 + \
+        [ctypes.c_int] * 9 + [ctypes.c_void_p]
+    lib.vsnray_traverse.restype = ctypes.c_int
+    lib.vsnray_traverse_binned.argtypes = [ctypes.c_void_p] * 10 + \
+        [ctypes.c_int] * 8 + [ctypes.c_void_p]
+    lib.vsnray_traverse_binned.restype = ctypes.c_int
+    return lib
+
+
 def _library():
-    """Build (once per source hash) and load the kernel's shared library."""
+    """Build (once per source hash) and load the kernels' shared library."""
     global _LIB
     if _LIB is not None:
         return _LIB
-    src = _SRC.read_bytes()
-    key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    out_dir = _BUILD_ROOT / key[:16]
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in sorted(_CUDA_DIR.glob("*.cu*")):
+        digest.update(path.name.encode() + path.read_bytes())
+    out_dir = _BUILD_ROOT / digest.hexdigest()[:16]
     lib_path = out_dir / "libvsnray_traverse.so"
     t0 = time.perf_counter()
     if not lib_path.exists():
-        out_dir.mkdir(parents=True, exist_ok=True)
-        tmp = out_dir / f"libvsnray_traverse.{os.getpid()}.tmp.so"
-        proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(_SRC)],
-            capture_output=True, text=True)
-        (out_dir / "nvcc.log").write_text(proc.stdout + proc.stderr)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {_SRC}:\n{proc.stderr}")
-        os.replace(tmp, lib_path)
+        build_library(SOURCES, out_dir)
     log = out_dir / "nvcc.log"
     BUILD_INFO.update(seconds=time.perf_counter() - t0, path=str(lib_path),
                       log=log.read_text() if log.exists() else "")
-    lib = ctypes.CDLL(str(lib_path))
-    fn = lib.vsnray_traverse
-    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 9 + \
-        [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    _LIB = lib
-    return lib
+    _LIB = bind_library(lib_path)
+    return _LIB
 
 
 def _round_up(x, m):
@@ -236,6 +277,16 @@ def launch_mode(heap: bool, num_clusters: int, two_pass: bool,
     return ("binned_" if two_pass else "") + kind
 
 
+def launch_form(heap: bool, num_clusters: int, two_pass: bool,
+                any_hit: bool, fanout: int, half_skip: bool):
+    """(C entry point, LAUNCHES key, VARIANT_LAUNCHES key) of one launch:
+    two-pass tiles go to traverse_binned.cu, everything else to
+    traverse.cu."""
+    mode = launch_mode(heap, num_clusters, two_pass, any_hit)
+    entry = "vsnray_traverse_binned" if two_pass else "vsnray_traverse"
+    return entry, mode, variant_key(mode, fanout, half_skip)
+
+
 def cluster_traverse(rays, nodes, tris, num_clusters: int, cluster_size: int,
                      tile_lanes: int, any_hit: bool = False,
                      tile_roots=None, tile_splits=None, counters=None,
@@ -283,24 +334,26 @@ def cluster_traverse(rays, nodes, tris, num_clusters: int, cluster_size: int,
                                  or not counters.is_contiguous()):
         raise ValueError("cluster_traverse: counters must be contiguous "
                          "int32 (npad, 2) on the rays' device")
+    entry, mode, key = launch_form(heap, num_clusters, two_pass, any_hit,
+                                   fanout, half_skip)
     lib = _library()
     outs = [torch.empty((npad,), dtype=torch.float32, device=rays.device)
             for _ in range(4)]
-    with torch.cuda.device(rays.device):
-        stream = torch.cuda.current_stream(rays.device).cuda_stream
-        err = lib.vsnray_traverse(
-            rays.data_ptr(), nodes.data_ptr(), tris.data_ptr(),
+    args = [rays.data_ptr(), nodes.data_ptr(), tris.data_ptr(),
             tile_roots.data_ptr(), tile_splits.data_ptr(),
             *[o.data_ptr() for o in outs],
             None if counters is None else counters.data_ptr(),
             npad, npad // tile_lanes, tile_lanes, num_clusters,
-            cluster_size, int(any_hit), int(heap), fanout, int(half_skip),
-            stream)
+            cluster_size, int(any_hit)]
+    # traverse_binned.cu's kernels are heap-only and take no heap flag
+    tree = [fanout, int(half_skip)] if two_pass else \
+        [int(heap), fanout, int(half_skip)]
+    with torch.cuda.device(rays.device):
+        stream = torch.cuda.current_stream(rays.device).cuda_stream
+        err = getattr(lib, entry)(*args, *tree, stream)
     if err != 0:
-        raise RuntimeError(f"traverse kernel launch failed: cudaError {err}")
-    mode = launch_mode(heap, num_clusters, two_pass, any_hit)
+        raise RuntimeError(f"{entry} launch failed: cudaError {err}")
     LAUNCHES[mode] += 1
-    key = variant_key(mode, fanout, half_skip)
     VARIANT_LAUNCHES[key] = VARIANT_LAUNCHES.get(key, 0) + 1
     return tuple(outs)
 
