@@ -6,22 +6,24 @@
 Phases, each of which fails the run (non-zero exit) when it fails:
 
 1. Device: the card's name and power limit (nvidia-smi), torch and CUDA
-   versions, and the nvcc build of ops/cuda/traverse.cu and
-   traverse_binned.cu, one nvcc each, started together (seconds; ptxas'
-   registers, shared memory, stack and spills of the main path's forms).
+   versions, and the nvcc build of ops/cuda/traverse.cu,
+   traverse_binned.cu and traverse_coherent.cu, one nvcc each, started
+   together (seconds; ptxas' registers, shared memory, stack and spills of
+   the main path's forms).
 2. Kernel vs plain version, per traversal mode, on every launch captured
    from the real 1080p frame (sponza-class scene, 259,656 triangles, K=32,
-   T=128): coherent closest-hit and any-hit (traverse.cu), binned two-pass
-   closest-hit and any-hit (traverse_binned.cu).  The first, a middle and
-   the last launch of each mode are compared on >= 8192 lanes each (binned
-   modes: tiles that straddle two treelet segments, the tile where live
-   lanes end, then tiles with live lanes); every launch is timed, and its
-   counters size its bound; the per-frame sums are reported beside the
-   first launch.
+   T=128): coherent closest-hit and any-hit (traverse_coherent.cu), binned
+   two-pass closest-hit and any-hit (traverse_binned.cu).  The first, a
+   middle and the last launch of each mode are compared on >= 8192 lanes
+   each (binned modes: tiles that straddle two treelet segments, the tile
+   where live lanes end, then tiles with live lanes); every launch is
+   timed, and its counters size its bound; the per-frame sums are reported
+   beside the first launch.
 3. The slice: ClusterBVH built on the card, then the 1920x1080, 1 spp,
    5-bounce NEE frame in bench.py's 64-px block swizzle; one warm frame,
-   then timed frames.  Launch counts are reset just before the first
-   timed frame and read just after it.
+   then timed frames.  Launch counts (per mode, per kernel form and per C
+   entry point) are reset just before the first timed frame and read just
+   after it: modes 1 and 1d must have run traverse_coherent.cu.
 4. Whole-path check: a small config (sponza_like 4000 triangles, K=8, T=16,
    64x64, 3 bounces, NEE) rendered through the kernel and through the
    plain version, both on the card, compared image to image.
@@ -46,12 +48,15 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    frame's launches counted per kernel form, its image held to phase 3's
    with phase 4's image tolerance, and its modes 1, 1b, 1c and 1d held
    against the plain version on captured launches as in phase 2 (relaunched
-   with the captured form).  Then the full-width training step under
-   (fanout=4, half_skip=True), checked and timed as phase 5.
+   with the captured form; the coherent 1f forms run traverse_binned.cu).
+   Then the full-width training step under (fanout=4, half_skip=True),
+   checked and timed as phase 5.
 9. The main path's other switches: the 1080p frame with shadow_binned=False
-   (NEE shadows of bounces 1.. through coherent any-hit) and with
-   shadow_reversed=False, shadow_m=6, dir_bits=3; each finite, not
-   constant, with every expected mode launched.
+   (NEE shadows of bounces 1.. through coherent any-hit: incoherent lanes
+   on traverse_coherent.cu) and with shadow_reversed=False, shadow_m=6,
+   dir_bits=3; each finite, not constant, with every expected mode
+   launched, and its coherent modes held against the plain version on
+   captured launches as in phase 2.
 
 Output: one line per check, then a JSON line with per-kernel numbers, the
 card's name and power limit, and as the last line
@@ -107,8 +112,13 @@ TIMED_STEPS = 3
 PEAK_BYTES_S, PEAK_F32_S = 3.35e12, 67e12
 FLOP_TRI, FLOP_BOX = 40, 20      # ops of one triangle / one box test
 REPLACES = "visionaray_tpu/ops/pallas/traverse.py:557"
-SOURCE = "visionaray_torch/ops/cuda/traverse.cu"
-SOURCE_BINNED = "visionaray_torch/ops/cuda/traverse_binned.cu"
+# the source of each C entry point of ops/traverse.py::launch_form
+SOURCES = {"vsnray_traverse": "visionaray_torch/ops/cuda/traverse.cu",
+           "vsnray_traverse_binned":
+               "visionaray_torch/ops/cuda/traverse_binned.cu",
+           "vsnray_traverse_coherent":
+               "visionaray_torch/ops/cuda/traverse_coherent.cu"}
+COHERENT = ("closest", "any")   # the modes launched from the root
 MODES = [  # (mode key, kernel name, table row) of the treelet frame
     ("closest", "traverse_closest", "1"),
     ("binned_closest", "traverse_binned_closest", "1b"),
@@ -126,6 +136,7 @@ OPTIONS_1F = {"fanout4": TraceConfig(fanout=4),
               "fanout4_half_skip": TraceConfig(fanout=4, half_skip=True)}
 STEP_1F = "fanout4_half_skip"
 # phase 9: the shadow and sort-key switches, with the modes each launches
+# (the coherent ones among them are held against the plain version)
 SWITCHES = {
     "shadow_coherent": (TraceConfig(shadow_binned=False),
                         ("closest", "any", "binned_closest")),
@@ -289,18 +300,20 @@ def ptxas_report(log):
 
 
 def form_name(mangled):
-    """``binned any=0 count=0 fanout=2 half=0 K=32`` or ``traverse any=0
-    count=0 heap=1 fanout=2 half=0`` from a kernel's mangled name."""
+    """``binned any=0 count=0 fanout=2 half=0 K=32``, ``coherent any=0
+    count=0 K=32`` or ``radix any=0 count=0`` (traverse.cu) from a kernel's
+    mangled name."""
     m = re.search(r"binned_kernelILb(\d)ELb(\d)ELi(\d)ELb(\d)ELi(\d+)E",
                   mangled)
     if m:
         return ("binned any={} count={} fanout={} half={} K={}"
                 .format(*m.groups()))
-    m = re.search(r"traverse_kernelILb(\d)ELb(\d)ELb(\d)ELi(\d)ELb(\d)E",
-                  mangled)
+    m = re.search(r"coherent_kernelILb(\d)ELb(\d)ELi(\d+)E", mangled)
     if m:
-        return ("traverse any={} count={} heap={} fanout={} half={}"
-                .format(*m.groups()))
+        return "coherent any={} count={} K={}".format(*m.groups())
+    m = re.search(r"traverse_kernelILb(\d)ELb(\d)EE", mangled)
+    if m:
+        return "radix any={} count={}".format(*m.groups())
     return mangled
 
 
@@ -309,8 +322,8 @@ def ptxas_lines(log, main_path=False):
     that the main path's frame and its 1f options run (K=32, heap)."""
     out = []
     for name, f in ptxas_report(log).items():
-        if main_path and ("count=1" in name or "heap=0" in name
-                          or ("binned" in name and "K=32" not in name)):
+        if main_path and ("count=1" in name or name.startswith("radix")
+                          or "K=32" not in name):
             continue
         out.append(f"{name}: {f['regs']} registers, {f['smem']} B smem, "
                    f"{f['stack']} B stack, {f['spill']} B spills")
@@ -327,6 +340,9 @@ def check_mode(key, name, row, launches, bvh, count):
     binned = first["roots"] is not None
     C, Kc = bvh.num_clusters, bvh.cluster_size
     fanout, half_skip = first["fanout"], first["half_skip"]
+
+    entry = trav.launch_form(bvh.heap, C, binned, any_hit, fanout,
+                             half_skip, Kc)[0]
 
     def kernel(r, ro, sp, tl, counters=None):
         return trav.cluster_traverse(
@@ -399,7 +415,7 @@ def check_mode(key, name, row, launches, bvh, count):
     ms_frame = sum(launch_ms)
     ok = (hit_mm + prim_mm <= MISMATCH_SHARE * max(n_live, 1)
           and max_rel <= T_RTOL)
-    src = SOURCE_BINNED if binned else SOURCE
+    src = SOURCES[entry]
     log(f"kernel {row} {name} (fanout={fanout} half_skip={half_skip}) "
         f"[{src.rsplit('/', 1)[1]}]: compared launches {compared} "
         f"lanes={n_lanes} live={n_live} straddling_tiles_in_launches="
@@ -416,8 +432,8 @@ def check_mode(key, name, row, launches, bvh, count):
     if len(launches) > 1:
         log(f"  launch ms {[round(t, 4) for t in launch_ms]} live lanes "
             f"{live_lanes}")
-    entry = {
-        "name": name, "route": "cuda", "source": src,
+    return ok, {
+        "name": name, "route": "cuda", "source": src, "entry": entry,
         "replaces": REPLACES, "mode": row, "mode_key": key,
         "launches": count.get(key, 0),
         "max_abs_err": max_abs, "ms": launch_ms[0], "plain_ms": plain_ms,
@@ -432,7 +448,6 @@ def check_mode(key, name, row, launches, bvh, count):
         "box_tests": tests[0], "tri_tests": tests[1],
         "variant": trav.variant_key(key, fanout, half_skip),
     }
-    return ok, entry
 
 
 def swizzled_pixels(device):
@@ -518,6 +533,7 @@ def training_step_phase(params, cam, x, y, label="training step"):
         fwd_s = time.perf_counter() - t0
         fwd = dict(trav.LAUNCHES)
         fwd_variants = dict(trav.VARIANT_LAUNCHES)
+        fwd_entries = dict(trav.ENTRY_LAUNCHES)
         trav.reset_launch_counts()
         t0 = time.perf_counter()
         g_v, g_c = torch.autograd.grad(loss, (v, c))
@@ -551,13 +567,15 @@ def training_step_phase(params, cam, x, y, label="training step"):
         f"loss={float(loss.detach()):.7f} "
         f"|g_verts|={float(g_v.norm()):.6e} |g_cd|={float(g_c.norm()):.6e} "
         f"finite={finite} nonzero={nonzero}")
-    log(f"  forward launches={fwd} by kernel form={fwd_variants} "
-        f"backward launches={bwd} {'OK' if ok else 'FAIL'}")
+    log(f"  forward launches={fwd} by kernel form={fwd_variants} by entry "
+        f"point={fwd_entries} backward launches={bwd} "
+        f"{'OK' if ok else 'FAIL'}")
     return ok, dict(step_s=step_s, mrays_per_s=rays / step_s / 1e6,
                     step_times=times, forward_s=fwd_s, backward_s=bwd_s,
                     peak_mem_bytes=peak, step_mem_bytes=peak - base_mem,
                     loss=float(loss.detach()),
                     forward_launches=fwd, forward_variants=fwd_variants,
+                    forward_entries=fwd_entries,
                     backward_launches=bwd_launches)
 
 
@@ -605,6 +623,7 @@ def timed_frames(frame):
     times = [time.perf_counter() - t0]
     launches = dict(trav.LAUNCHES)
     rec.variants = dict(trav.VARIANT_LAUNCHES)
+    rec.entries = dict(trav.ENTRY_LAUNCHES)
     for i in range(TIMED_FRAMES - 1):
         t0 = time.perf_counter()
         frame(3 + i)
@@ -703,18 +722,23 @@ def option_phase(option, cfg, params, cam, x, y, ref_color, check_modes):
                     image_share_over_tol_vs_default=share)
 
 
-def switch_phase(name, cfg, expect, params, cam, x, y, ref_color):
-    """Phase 9, one switch setting: a counted 1080p frame."""
+def switch_phase(name, cfg, expect, params, cam, x, y, ref_color,
+                 check_modes):
+    """Phase 9, one switch setting: a counted 1080p frame, its coherent
+    modes against the plain version on its captured launches."""
     p1 = dataclasses.replace(params, trace=cfg)
+    rec = LaunchRecorder(trav.cluster_traverse)
     trav.reset_launch_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    color, depth = render_pixels(p1, cam, x, y, WIDTH, HEIGHT,
-                                 "pathtracing", SPP, "jittered_blend", 2,
-                                 nee=True)
+    with recorded(rec):
+        color, depth = render_pixels(p1, cam, x, y, WIDTH, HEIGHT,
+                                     "pathtracing", SPP, "jittered_blend", 2,
+                                     nee=True)
     torch.cuda.synchronize()
     frame_s = time.perf_counter() - t0
     launches = dict(trav.LAUNCHES)
+    entries = dict(trav.ENTRY_LAUNCHES)
     mean_abs, share = image_diff(color, ref_color)
     finite = bool(torch.isfinite(color).all())
     std = float(color[:, :3].std())
@@ -722,10 +746,15 @@ def switch_phase(name, cfg, expect, params, cam, x, y, ref_color):
           and sum(launches.values()) == sum(launches[k] for k in expect))
     log(f"switches {name} ({cfg}): frame 1920x1080 frame_s={frame_s:.4f} "
         f"(one frame, kernel warm) launches={launches} "
+        f"entry_launches={entries} "
         f"image_std={std:.6f} vs default frame: mean_abs={mean_abs:.3e} "
         f"pixels_over_{IMG_PIX_TOL:g}={share:.4f} finite={finite} "
         f"{'OK' if ok else 'FAIL'}")
+    modes = [(k, f"{n}_{name}", row) for k, n, row in MODES
+             if k in COHERENT and k in expect]
+    ok &= check_modes(modes, rec, params.scene.bvh, launches)
     return ok, dict(frame_s=frame_s, launches=launches,
+                    entry_launches=entries,
                     image_mean_abs_vs_default=mean_abs,
                     image_share_over_tol_vs_default=share)
 
@@ -755,7 +784,8 @@ def profile_run(run, label, table_path=None):
     dev_rows = sorted((e for e in ka
                        if e.device_type == torch.autograd.DeviceType.CUDA),
                       key=dev_us, reverse=True)
-    groups = {"traverse_kernel": ("traverse_kernel", "binned_kernel"),
+    groups = {"traverse_kernel": ("traverse_kernel", "binned_kernel",
+                                  "coherent_kernel"),
               "sort": ("Sort", "sort", "Radix", "radix"),
               "gather_scatter": ("gather", "index", "scatter", "Index"),
               "reduce": ("reduce_kernel",),
@@ -868,17 +898,22 @@ def main() -> int:
         log(f"frame 1920x1080 spp=1 bounces=5 nee: frame_s={frame_s:.4f} "
             f"(frames {', '.join(f'{t:.4f}' for t in times)}) "
             f"mrays_per_s={rays / frame_s / 1e6:.3f} launches={launches} "
+            f"entry_launches={rec.entries} "
             f"hit_fraction={hit_frac:.4f} image_mean={img_mean:.6f} "
             f"image_std={img_std:.6f} finite={finite}")
+        coherent_n = sum(launches[k] for k in COHERENT)
         path_ok = (finite and img_std > 0 and hit_frac > 0.5
-                   and all(launches[k] > 0 for k, _, _ in MODES))
+                   and all(launches[k] > 0 for k, _, _ in MODES)
+                   and rec.entries["vsnray_traverse_coherent"] == coherent_n)
         if not path_ok:
             log("FAIL: the frame is not finite, is constant, hits too "
-                "little, or a path mode never launched")
+                "little, a path mode never launched, or a coherent mode "
+                "did not run traverse_coherent.cu")
         all_ok &= path_ok
 
         # ---- phase 2: kernel vs plain, per mode, on captured launches
         all_ok &= check_modes(MODES, rec, bvh, launches)
+        rec_entries = rec.entries
         del rec
 
         # ---- phase 4: whole-path check
@@ -975,8 +1010,12 @@ def main() -> int:
         # ---- phase 9: the shadow and sort-key switches
         switch_frames = {}
         for name, (cfg, expect) in SWITCHES.items():
+            first = len(entries)
             good, switch_frames[name] = switch_phase(
-                name, cfg, expect, params, cam, x, y, color)
+                name, cfg, expect, params, cam, x, y, color, check_modes)
+            for e in entries[first:]:
+                e["switch"] = name
+                e["launches_training_step"] = 0
             all_ok &= good
 
     if "--profile" in sys.argv[1:]:
@@ -992,6 +1031,7 @@ def main() -> int:
             table[0] + ".step" if table else None)
 
     log(json.dumps({"kernels": entries, "frame_s": frame_s,
+                    "entry_launches": rec_entries,
                     "bvh_build_s": bvh_build_s,
                     "mrays_per_s": rays / frame_s / 1e6,
                     "training_step": step_info,

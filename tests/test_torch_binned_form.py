@@ -69,19 +69,25 @@ def test_binned_takes_any_multiple_of_8(K):
                          [(f, h) for f in trav.FANOUTS for h in (False,
                                                                  True)])
 def test_launch_form_keys(fanout, half_skip):
-    """Two-pass tiles go to traverse_binned.cu's entry point, every other
-    launch to traverse.cu's; LAUNCHES and VARIANT_LAUNCHES keep their keys
-    per mode and per (fanout, half_skip)."""
+    """Two-pass tiles go to traverse_binned.cu's entry point, coherent tiles
+    on a heap tree to traverse_coherent.cu's at binary descent without the
+    half skip and K in BINNED_K, and to traverse_binned.cu's otherwise;
+    radix trees to traverse.cu's.  LAUNCHES and VARIANT_LAUNCHES keep their
+    keys per mode and per (fanout, half_skip)."""
     suffix = f"/fanout{fanout}" + ("/half_skip" if half_skip else "")
     for any_hit, kind in ((False, "closest"), (True, "any")):
-        assert trav.launch_form(True, 8192, True, any_hit, fanout,
-                                half_skip) == (
-            "vsnray_traverse_binned", f"binned_{kind}",
-            f"binned_{kind}" + suffix)
-        assert trav.launch_form(True, 8192, False, any_hit, fanout,
-                                half_skip) == (
-            "vsnray_traverse", kind, kind + suffix)
-    assert trav.launch_form(False, 1, False, True, 2, False)[:2] == (
+        for K in (*trav.BINNED_K, 40):
+            assert trav.launch_form(True, 8192, True, any_hit, fanout,
+                                    half_skip, K) == (
+                "vsnray_traverse_binned", f"binned_{kind}",
+                f"binned_{kind}" + suffix)
+            coherent = (fanout == 2 and not half_skip
+                        and K in trav.BINNED_K)
+            assert trav.launch_form(True, 8192, False, any_hit, fanout,
+                                    half_skip, K) == (
+                "vsnray_traverse_coherent" if coherent
+                else "vsnray_traverse_binned", kind, kind + suffix)
+    assert trav.launch_form(False, 1, False, True, 2, False, 32)[:2] == (
         "vsnray_traverse", "c1_any")
     assert set(trav.LAUNCHES) >= {"binned_closest", "binned_any"}
 

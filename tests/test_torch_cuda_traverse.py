@@ -79,10 +79,12 @@ def test_coherent_modes_match_plain(scene, any_hit):
     npad = trav._round_up(n, 8192)
     rays = trav._pack_rays(ray.ori, ray.dir, mt, n, npad, pad_maxt=-1.0)
     before = trav.LAUNCHES["any" if any_hit else "closest"]
+    entry = trav.ENTRY_LAUNCHES["vsnray_traverse_coherent"]
     got = trav.cluster_traverse(rays, bvh.nodes, bvh.tris, bvh.num_clusters,
                                 bvh.cluster_size, tile_lanes=4096,
                                 any_hit=any_hit)
     assert trav.LAUNCHES["any" if any_hit else "closest"] == before + 1
+    assert trav.ENTRY_LAUNCHES["vsnray_traverse_coherent"] == entry + 1
     roots, splits = trav._default_tiles(npad, 4096, rays.device)
     ref = trav.traverse_plain(rays, bvh.nodes, bvh.tris, bvh.num_clusters,
                               bvh.cluster_size, 4096, any_hit, roots, splits)
@@ -121,7 +123,8 @@ VARIANTS = [(4, False), (8, False), (2, True), (4, True), (8, True)]
 @pytest.mark.parametrize("fanout,half_skip", VARIANTS)
 def test_1f_coherent_match_plain(scene, any_hit, fanout, half_skip):
     """Wide descent and the half-cluster skip change the visiting order
-    and the culling, not the result."""
+    and the culling, not the result.  These coherent forms run on
+    traverse_binned.cu (every tile from root 0)."""
     s, ray = scene
     bvh = s.bvh
     assert bvh.heap and bvh.half_boxes
@@ -133,12 +136,14 @@ def test_1f_coherent_match_plain(scene, any_hit, fanout, half_skip):
     mode = "any" if any_hit else "closest"
     key = trav.variant_key(mode, fanout, half_skip)
     before = trav.VARIANT_LAUNCHES.get(key, 0)
+    entry = trav.ENTRY_LAUNCHES["vsnray_traverse_binned"]
     counters = torch.zeros((npad, 2), dtype=torch.int32, device=rays.device)
     got = trav.cluster_traverse(rays, bvh.nodes, bvh.tris, bvh.num_clusters,
                                 bvh.cluster_size, tile_lanes=4096,
                                 any_hit=any_hit, counters=counters,
                                 fanout=fanout, half_skip=half_skip)
     assert trav.VARIANT_LAUNCHES[key] == before + 1
+    assert trav.ENTRY_LAUNCHES["vsnray_traverse_binned"] == entry + 1
     roots, splits = trav._default_tiles(npad, 4096, rays.device)
     ref = trav.traverse_plain(rays, bvh.nodes, bvh.tris, bvh.num_clusters,
                               bvh.cluster_size, 4096, any_hit, roots, splits)
@@ -261,6 +266,37 @@ def k_bvhs(scene):
                 for K in BINNED_KS}
 
 
+def _good_records(bvh):
+    """(records (C, K, 16), valid (C, K): records of non-zero area -- a
+    cluster's padding records have none -- and the clusters holding one)."""
+    rec = bvh.tri_records()
+    valid = torch.linalg.cross(rec[..., 3:6], rec[..., 6:9]).norm(dim=-1) \
+        > 1e-6
+    return rec, valid, torch.nonzero(valid.any(1)).reshape(-1)
+
+
+def _aimed(bvh, clusters, rng, seed, origins=None):
+    """Rays from random points of the scene box (or ``origins``) to a point
+    inside a random valid triangle of each of ``clusters``."""
+    dev = clusters.device
+    rec, valid, _ = _good_records(bvh)
+    lo, hi = bvh.nodes[0, 0:3], bvh.nodes[0, 3:6]
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    k = torch.multinomial(valid[clusters].float(), 1,
+                          generator=gen).reshape(-1)
+    r = rec[clusters, k]
+    w = torch.as_tensor(rng.uniform(0.1, 0.4, (clusters.shape[0], 2)),
+                        dtype=torch.float32, device=dev)
+    target = r[:, 0:3] + w[:, 0:1] * r[:, 3:6] + w[:, 1:2] * r[:, 6:9]
+    o = lo + (hi - lo) * torch.as_tensor(
+        rng.uniform(0.05, 0.95, (clusters.shape[0], 3)),
+        dtype=torch.float32, device=dev)
+    if origins is not None:
+        o = origins(target, r)
+    d = target - o
+    return o, d / d.norm(dim=-1, keepdim=True)
+
+
 def _edge_tiles(bvh, ray, seed=0):
     """Four 2048-lane two-pass tiles: (0) the scene's rays, split at lane 48
     so that warp 1 straddles pass A (a treelet root) and pass B (its
@@ -273,27 +309,11 @@ def _edge_tiles(bvh, ray, seed=0):
     dev = ray.ori.device
     tl = trav.BINNED_ROWS * 128
     rng = np.random.default_rng(seed)
-    C, K = bvh.num_clusters, bvh.cluster_size
-    rec = bvh.tri_records()
-    lo, hi = bvh.nodes[0, 0:3], bvh.nodes[0, 3:6]
-    # records of non-zero area (a cluster's padding records have none)
-    valid = torch.linalg.cross(rec[..., 3:6], rec[..., 6:9]).norm(dim=-1) \
-        > 1e-6
-    good = torch.nonzero(valid.any(1)).reshape(-1)
+    C = bvh.num_clusters
+    _, _, good = _good_records(bvh)
 
     def aimed(clusters):
-        gen = torch.Generator(device=dev).manual_seed(seed)
-        k = torch.multinomial(valid[clusters].float(), 1,
-                              generator=gen).reshape(-1)
-        r = rec[clusters, k]
-        w = torch.as_tensor(rng.uniform(0.1, 0.4, (clusters.shape[0], 2)),
-                            dtype=torch.float32, device=dev)
-        target = r[:, 0:3] + w[:, 0:1] * r[:, 3:6] + w[:, 1:2] * r[:, 6:9]
-        o = lo + (hi - lo) * torch.as_tensor(
-            rng.uniform(0.05, 0.95, (clusters.shape[0], 3)),
-            dtype=torch.float32, device=dev)
-        d = target - o
-        return o, d / d.norm(dim=-1, keepdim=True)
+        return _aimed(bvh, clusters, rng, seed)
 
     c_one = int(good[rng.integers(0, good.numel())])
     o0, d0 = ray.ori[:tl], ray.dir[:tl]
@@ -396,3 +416,168 @@ def test_binned_form_refusals(scene, k_bvhs):
     with pytest.raises(ValueError, match="multiple of 8"):
         trav.cluster_traverse(rays, bvh.nodes, bvh.tris, bvh.num_clusters,
                               12, tl, tile_roots=roots, tile_splits=splits)
+
+
+# traverse_coherent.cu: coherent lanes (every lane from the root of a heap
+# tree) at each compile-time K, on lane layouts that drive the warp-packet
+# walk, its leaf steps and the one-lane walk of incoherent warps
+COHERENT_TILES = 5
+SPREAD_COS = 0.985   # traverse_coherent.cu kSpreadCos
+
+
+def _packet_warps(rays):
+    """Per warp of 32 lanes, whether traverse_coherent.cu walks it as a
+    packet: at most a quarter of its live lanes point further than
+    acos(SPREAD_COS) from its first live lane."""
+    w = rays.reshape(-1, 32, 8)
+    live = w[..., 6] >= 0
+    d = w[..., 3:6]
+    ref = d.gather(1, live.to(torch.int8).argmax(1)[:, None, None]
+                   .expand(-1, 1, 3))
+    cos = (d * ref).sum(-1) / (d.norm(dim=-1) * ref.norm(dim=-1))
+    apart = live & (cos < SPREAD_COS)
+    return 4 * apart.sum(1) <= live.sum(1)
+
+
+def _coherent_lanes(bvh, ray, seed=0):
+    """Five 4096-lane tiles, every lane from the root: (0) a pinhole fan
+    from one point over 0.1 rad, a 64 x 64 grid row by row, so that a warp
+    is a strip of 32 adjacent pixels within 3 degrees (a packet); (1) tile
+    0's lanes, warps dead in turn: every lane, the first half, every other
+    lane, none; (2) every lane aimed at a triangle of one cluster from just
+    in front of it (its warps all hit that cluster); (3) lane j aimed at a
+    triangle of the (37 j)-th non-empty cluster from a random point, so
+    that the lanes of a warp head to different clusters (walked lane by
+    lane); (4) the scene's random rays.  A third of the live lanes of tiles
+    0, 3 and 4 have max_t cut short."""
+    dev = ray.ori.device
+    tl = trav.TILE_ROWS * 128
+    rng = np.random.default_rng(seed)
+    _, _, good = _good_records(bvh)
+    lo, hi = bvh.nodes[0, 0:3], bvh.nodes[0, 3:6]
+    eye = lo + (hi - lo) * torch.tensor([0.05, 0.4, 0.3], device=dev)
+    fwd = torch.tensor([1.0, -0.2, 0.3], device=dev)
+    fwd = fwd / fwd.norm()
+    right = torch.linalg.cross(fwd, torch.tensor([0.0, 1.0, 0.0],
+                                                 device=dev))
+    right = right / right.norm()
+    up = torch.linalg.cross(right, fwd)
+    u = (torch.arange(64, device=dev, dtype=torch.float32) + 0.5) / 64 - 0.5
+    gy, gx = torch.meshgrid(u, u, indexing="ij")
+    d0 = fwd + 0.1 * (gx.reshape(-1, 1) * right + gy.reshape(-1, 1) * up)
+    d0 = d0 / d0.norm(dim=-1, keepdim=True)
+    o0 = eye.expand(tl, 3)
+
+    def in_front(target, r):   # just off the triangle along its normal
+        n = torch.linalg.cross(r[:, 3:6], r[:, 6:9])
+        return target + 1e-3 * (hi - lo).norm() * n / n.norm(dim=-1,
+                                                              keepdim=True)
+
+    c_one = int(good[rng.integers(0, good.numel())])
+    o2, d2 = _aimed(bvh, torch.full((tl,), c_one, device=dev), rng, seed,
+                    in_front)
+    o3, d3 = _aimed(bvh, good[torch.arange(tl, device=dev) * 37
+                              % good.numel()], rng, seed)
+    o = torch.cat([o0, o0, o2, o3, ray.ori[:tl]])
+    d = torch.cat([d0, d0, d2, d3, ray.dir[:tl]])
+    n = COHERENT_TILES * tl
+    mt = torch.full((n,), 1e30, device=dev)
+    cut = torch.as_tensor(rng.random(n) < 1 / 3, device=dev)
+    mt = torch.where(cut, torch.as_tensor(rng.uniform(0.5, 4.0, n),
+                                          dtype=torch.float32, device=dev),
+                     mt)
+    mt[tl:3 * tl] = 1e30
+    lane = torch.arange(tl, device=dev)
+    kind = (lane // 32) % 4       # the dead lanes of tile 1's warps
+    dead = (kind == 0) | ((kind == 1) & (lane % 32 < 16)) | \
+        ((kind == 2) & (lane % 2 == 1))
+    mt[tl:2 * tl] = torch.where(dead, -1.0, 1e30)
+    return trav._pack_rays(o, d, mt, n, n, pad_maxt=-1.0), c_one
+
+
+@pytest.mark.parametrize("any_hit", [False, True])
+@pytest.mark.parametrize("K", trav.BINNED_K)
+def test_coherent_form_lanes(scene, k_bvhs, K, any_hit):
+    """traverse_coherent.cu against the plain version on coherent and
+    incoherent warps, a warp on one cluster, half-dead and all-dead
+    warps."""
+    _, ray = scene
+    bvh = k_bvhs[K]
+    rays, c_one = _coherent_lanes(bvh, ray)
+    tl = trav.TILE_ROWS * 128
+    entry = trav.ENTRY_LAUNCHES["vsnray_traverse_coherent"]
+    got = trav.cluster_traverse(rays, bvh.nodes, bvh.tris, bvh.num_clusters,
+                                K, tile_lanes=tl, any_hit=any_hit)
+    assert trav.ENTRY_LAUNCHES["vsnray_traverse_coherent"] == entry + 1
+    roots, splits = trav._default_tiles(rays.shape[0], tl, rays.device)
+    ref = trav.traverse_plain(rays, bvh.nodes, bvh.tris, bvh.num_clusters,
+                              K, tl, any_hit, roots, splits)
+    _check(got, ref, rays, any_hit)
+    hit = (got[1] >= 0).reshape(COHERENT_TILES, tl)
+    live = (rays[:, 6] >= 0).reshape(COHERENT_TILES, tl)
+    warps = live[1].reshape(-1, 32)
+    assert not warps[0::4].any() and bool(warps[3::4].all())
+    assert int(warps[1::4].sum(1).min()) == 16
+    assert hit[0].any() and hit[1].any() and hit[2].all()
+    assert int(hit[3].sum()) > 100
+    packet = _packet_warps(rays).reshape(COHERENT_TILES, -1)
+    assert bool(packet[0].all()) and not bool(packet[3].any())
+    if not any_hit:
+        # tile 2's lanes start just in front of their cluster
+        own = set(bvh.tri_records()[c_one, :, 9].tolist())
+        mine = got[1].reshape(COHERENT_TILES, tl)[2].tolist()
+        assert sum(p in own for p in mine) >= 0.9 * tl
+
+
+@pytest.mark.parametrize("K", trav.BINNED_K)
+def test_coherent_two_pass_front_end(scene, k_bvhs, K, monkeypatch):
+    """cluster_closest_hit(two_pass=True): lanes capped at
+    TWO_PASS_CAP_FRAC of the scene diagonal, then the capped misses at
+    full range among dead lanes, both launches through
+    traverse_coherent.cu, each against the plain version."""
+    s, ray = scene
+    bvh = k_bvhs[K]
+    caps = []
+    real = trav.cluster_traverse
+
+    def check(rays, nodes, tris, C, Kc, tile_lanes, any_hit=False,
+              tile_roots=None, tile_splits=None, counters=None, **tree):
+        entry = trav.ENTRY_LAUNCHES["vsnray_traverse_coherent"]
+        got = real(rays, nodes, tris, C, Kc, tile_lanes, any_hit, tile_roots,
+                   tile_splits, **tree)
+        assert trav.ENTRY_LAUNCHES["vsnray_traverse_coherent"] == entry + 1
+        roots, splits = trav._default_tiles(rays.shape[0], tile_lanes,
+                                            rays.device)
+        ref = trav.traverse_plain(rays, nodes, tris, C, Kc, tile_lanes,
+                                  any_hit, roots, splits)
+        _check(got, ref, rays, any_hit)
+        caps.append(rays[:, 6].clone())
+        return got
+
+    monkeypatch.setattr(trav, "cluster_traverse", check)
+    with torch.inference_mode():
+        rec = trav.cluster_closest_hit(ray, bvh, s.mesh, two_pass=True)
+    assert len(caps) == 2
+    diag = float((bvh.nodes[0, 3:6] - bvh.nodes[0, 0:3]).norm())
+    first = caps[0][caps[0] >= 0]
+    assert float(first.max()) <= trav.TWO_PASS_CAP_FRAC * diag * (1 + 1e-6)
+    assert bool((caps[1] < 0).any()) and bool((caps[1] > 1e29).any())
+    assert int(rec.hit.sum()) > 0
+
+
+@pytest.mark.parametrize("any_hit", [False, True])
+def test_coherent_k40_goes_to_binned(scene, k_bvhs, any_hit):
+    """Coherent lanes at K=40 (no compile-time form in
+    traverse_coherent.cu) run traverse_binned.cu's run-time-K form."""
+    _, ray = scene
+    bvh = k_bvhs[40]
+    rays, _ = _coherent_lanes(bvh, ray)
+    tl = trav.TILE_ROWS * 128
+    entry = trav.ENTRY_LAUNCHES["vsnray_traverse_binned"]
+    got = trav.cluster_traverse(rays, bvh.nodes, bvh.tris, bvh.num_clusters,
+                                40, tile_lanes=tl, any_hit=any_hit)
+    assert trav.ENTRY_LAUNCHES["vsnray_traverse_binned"] == entry + 1
+    roots, splits = trav._default_tiles(rays.shape[0], tl, rays.device)
+    ref = trav.traverse_plain(rays, bvh.nodes, bvh.tris, bvh.num_clusters,
+                              40, tl, any_hit, roots, splits)
+    _check(got, ref, rays, any_hit)

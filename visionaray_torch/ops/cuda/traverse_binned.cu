@@ -1,5 +1,8 @@
 // Two-pass-tile ClusterBVH traversal for NVIDIA Hopper (sm_90a): the
-// treelet-binned path's kernel (PERF.md rows 1b, 1c and their 1f forms).
+// treelet-binned path's kernel (PERF.md rows 1b, 1c and their 1f forms),
+// and the coherent launches on a heap tree that traverse_coherent.cu does
+// not take (4/8-wide descent, the half-cluster skip, a cluster size outside
+// 8, 16, 32), which arrive with both roots 0 and split = tile_lanes.
 //
 // Replaces the two-pass tiles of the Pallas TPU kernel visionaray_tpu/ops/
 // pallas/traverse.py::_traverse_kernel (:105-126 pass selection, :453-496
@@ -33,9 +36,11 @@
 //   of many records go out before their tests.  Any other multiple of 8
 //   (pick_cluster_size gives 40, 48, ... on large meshes) runs one more
 //   form whose record loop runs to the run-time K.
-// The stack is traverse.cu's, kStackDepth entries.
-// Each lane visits the nodes and records in the order traverse.cu does, so
-// the two kernels return the same bits.  Measured and dropped (PERF.md
+// The walk (lane_walk) and the record tests live in traverse_common.cuh:
+// the lanes of traverse_coherent.cu's incoherent warps run the same walk.
+// The stack is kStackDepth entries.
+// Each lane visits the nodes and records in the order the one-loop walk
+// did, so the two return the same bits.  Measured and dropped (PERF.md
 // §6): staging each distinct cluster of a warp's leaf step in shared
 // memory (a leaf step holds 2-4 lanes per cluster, and the groups' tests
 // serialise), the stack in shared memory, partial unrolling; a stack of
@@ -57,56 +62,6 @@ namespace {
 
 constexpr int kBlock = 128;
 
-// Records [k0, k1) of one cluster against the ray: one record at a time,
-// unrolled, when kK is a compile-time cluster size; one loop when kK is 0
-// (run-time K).
-template <bool kAnyHit, bool kCount, int kK>
-__device__ __forceinline__ bool test_records(const float4* __restrict__ rec,
-                                             int k0, int k1, const RayData& r,
-                                             float& bt, float& bp, float& bu,
-                                             float& bv, int& n_tri) {
-  if constexpr (kK == 0) {
-    return intersect_records<kAnyHit, kCount>(rec, k0, k1, r, bt, bp, bu, bv,
-                                              n_tri);
-  } else {
-#pragma unroll
-    for (int k = k0; k < k1; ++k)
-      if (intersect_records<kAnyHit, kCount>(rec, k, k + 1, r, bt, bp, bu, bv,
-                                             n_tri))
-        return true;
-    return false;
-  }
-}
-
-// The K records of one cluster against the ray, in order k = 0..K-1; with
-// the half skip each half's box (floats 10..15 of record h) is tested first
-// and gates its K/2 records.  Returns true when an any-hit lane found its
-// hit.
-template <bool kAnyHit, bool kCount, bool kHalfSkip, int kK>
-__device__ __forceinline__ bool test_cluster(const float4* __restrict__ rec,
-                                             int K, const RayData& r,
-                                             float& bt, float& bp, float& bu,
-                                             float& bv, int& n_box,
-                                             int& n_tri) {
-  if constexpr (kHalfSkip) {
-    const int half = K / 2;
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const float4 c = __ldg(rec + 4 * h + 2);  // e2z pid lo.x lo.y
-      const float4 d = __ldg(rec + 4 * h + 3);  // lo.z hi.x hi.y hi.z
-      if (kCount) ++n_box;
-      if (box_entry(c.z, c.w, d.x, d.y, d.z, d.w, r, bt) < bt &&
-          test_records<kAnyHit, kCount, kK>(rec, h * half, (h + 1) * half, r,
-                                            bt, bp, bu, bv, n_tri))
-        return true;
-    }
-    return false;
-  } else {
-    return test_records<kAnyHit, kCount, kK>(rec, 0, K, r, bt, bp, bu, bv,
-                                             n_tri);
-  }
-}
-
 template <bool kAnyHit, bool kCount, int kFanout, bool kHalfSkip, int kK>
 __global__ void __launch_bounds__(kBlock)
 binned_kernel(const float4* __restrict__ rays,    // (npad, 8) as 2 float4
@@ -119,11 +74,6 @@ binned_kernel(const float4* __restrict__ rays,    // (npad, 8) as 2 float4
               int* __restrict__ counters,         // (npad, 2) or null
               int npad, int n_tiles, int tile_lanes, int num_clusters,
               int cluster_size) {
-  static_assert(kFanout == 2 || kFanout == 4 || kFanout == 8,
-                "fanout is 2, 4 or 8");
-  static_assert(kK == 0 || kK == 8 || kK == 16 || kK == 32,
-                "K is 8, 16, 32 or 0 (run time)");
-  static_assert(!kHalfSkip || kK == 0 || kK >= 16, "half boxes need K >= 16");
   const int K = kK > 0 ? kK : cluster_size;
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= npad) return;
@@ -136,99 +86,16 @@ binned_kernel(const float4* __restrict__ rays,    // (npad, 8) as 2 float4
     const float4 r0 = rays[2 * i];  // ox oy oz dx
     const int tile = i / tile_lanes;
     const int lane = i - tile * tile_lanes;
-    int node = lane < splits[tile] ? roots[tile] : roots[n_tiles + tile];
+    const int node = lane < splits[tile] ? roots[tile] : roots[n_tiles + tile];
     RayData r;
     r.ox = r0.x; r.oy = r0.y; r.oz = r0.z;
     r.dx = r0.w; r.dy = r1.x; r.dz = r1.y;
     r.ix = clamp_inv(r.dx); r.iy = clamp_inv(r.dy); r.iz = clamp_inv(r.dz);
-    const int leaf_base = num_clusters - 1;
     int stack_node[kStackDepth];
     float stack_t[kStackDepth];
-    int sp = 0;
-
-    // the nearest stacked node whose entry is still in front of the best hit
-    auto pop = [&]() -> bool {
-      while (sp > 0) {
-        --sp;
-        if (stack_t[sp] < bt) {
-          node = stack_node[sp];
-          return true;
-        }
-      }
-      return false;
-    };
-
-    while (true) {
-      // inner phase: descend until this lane holds a leaf or is done
-      bool walking = true;
-      while (node < leaf_base) {
-        bool descended = false;
-        if constexpr (kFanout == 2) {
-          const int left = 2 * node + 1, right = 2 * node + 2;
-          const float tl = slab_entry(nodes, left, r, bt);
-          const float tr = slab_entry(nodes, right, r, bt);
-          if (kCount) n_box += 2;
-          const bool hl = tl < INFINITY, hr = tr < INFINITY;
-          if (hl && hr) {
-            const bool left_first = tl <= tr;
-            stack_node[sp] = left_first ? right : left;
-            stack_t[sp] = left_first ? tr : tl;
-            ++sp;
-            node = left_first ? left : right;
-          } else if (hl || hr) {
-            node = hl ? left : right;
-          }
-          descended = hl || hr;
-        } else {
-          // the frontier kFanout/2 levels down (traverse.py:400-412): a
-          // candidate that is a leaf stays, its empty sibling slot gets -1
-          constexpr int kLevels = kFanout == 8 ? 3 : 2;
-          int idx[kFanout];
-          idx[0] = 2 * node + 1;
-          idx[1] = 2 * node + 2;
-#pragma unroll
-          for (int lv = 1; lv < kLevels; ++lv) {
-#pragma unroll
-            for (int j = (1 << lv) - 1; j >= 0; --j) {
-              const int c = idx[j];
-              const bool keep = c >= leaf_base || c < 0;
-              idx[2 * j] = keep ? c : 2 * c + 1;
-              idx[2 * j + 1] = keep ? -1 : 2 * c + 2;
-            }
-          }
-          float key[kFanout];
-#pragma unroll
-          for (int j = 0; j < kFanout; ++j) {
-            key[j] = idx[j] >= 0 ? slab_entry(nodes, idx[j], r, bt)
-                                 : INFINITY;
-            if (kCount) n_box += idx[j] >= 0;
-          }
-          sort_net<kFanout>(key, idx);
-          if (key[0] < INFINITY) {
-            // the hit candidates behind the nearest, pushed far to near
-#pragma unroll
-            for (int j = kFanout - 1; j >= 1; --j) {
-              if (key[j] < INFINITY) {
-                stack_node[sp] = idx[j];
-                stack_t[sp] = key[j];
-                ++sp;
-              }
-            }
-            node = idx[0];
-            descended = true;
-          }
-        }
-        if (!descended) walking = pop();
-        if (!walking) break;
-      }
-      if (!walking) break;
-      // leaf phase: the warp's lanes that hold a leaf test it together
-      const bool found = test_cluster<kAnyHit, kCount, kHalfSkip, kK>(
-          tris + static_cast<size_t>(node - leaf_base) * K * 4, K, r, bt, bp,
-          bu, bv, n_box, n_tri);
-      const bool more = !(kAnyHit && found) && pop();
-      if (!more) break;
-    }
+    lane_walk<kAnyHit, kCount, kFanout, kHalfSkip, kK>(
+        nodes, tris, num_clusters - 1, K, r, node, stack_node, stack_t, 0, bt,
+        bp, bu, bv, n_box, n_tri);
   }
   out_t[i] = bt;
   out_prim[i] = bp;

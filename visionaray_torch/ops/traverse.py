@@ -3,11 +3,14 @@ version, and the glue around them (port of ops/pallas/traverse.py).
 
 Every traversal of the path tracer goes through ``cluster_traverse``:
 
-- on CUDA tensors it launches a kernel of ``ops/cuda/`` (``traverse.cu``
-  for coherent tiles and radix trees, ``traverse_binned.cu`` for the
-  two-pass tiles of the binned path; both built with nvcc at first use into
+- on CUDA tensors it launches a kernel of ``ops/cuda/`` and adds one to
+  ``LAUNCHES[mode]`` and to ``ENTRY_LAUNCHES[entry point]``:
+  ``traverse_coherent.cu`` for coherent tiles on a heap tree (binary
+  descent, no half skip, K in BINNED_K), ``traverse_binned.cu`` for the
+  two-pass tiles of the binned path and every other heap-tree form,
+  ``traverse.cu`` for radix trees; all built with nvcc at first use into
   one library under ``build/visionaray_torch/<source hash>/``, loaded with
-  ctypes) and adds one to ``LAUNCHES[mode]``;
+  ctypes (``launch_form`` picks the entry point);
 - on CPU tensors it runs ``traverse_plain``, a brute-force Moeller-Trumbore
   of each lane against every cluster under its start node.  It does not
   depend on traversal order, so it is an independent oracle for the kernel.
@@ -22,7 +25,7 @@ values.
 
 Two tree forms: the kd heap (children of n at 2n+1 / 2n+2, the treelet
 build) and the radix tree (children read from nodes[n, 6:8]; C == 1 is a
-single leaf), traversed from node 0 only.  On a heap the kernel can also
+single leaf), traversed from node 0 only.  On a heap the kernels can also
 descend 4 or 8 wide (``fanout``) and, where the kd build wrote half-cluster
 boxes, skip the half of a cluster whose box the ray misses (``half_skip``):
 PERF.md row 1f.  Neither changes the contract, so ``traverse_plain`` is
@@ -66,8 +69,9 @@ TILE_ROWS = 32       # coherent path: tile = TILE_ROWS * 128 lanes
 INTERLEAVE = 2       # tiles per TPU grid step; fixes the padding granule
 STACK_DEPTH = 64     # the kernels' stack entries; see stack_need
 FANOUTS = (2, 4, 8)  # descent widths of the kernel (JAX _SORT_NET keys)
-# the cluster sizes whose record loop traverse_binned.cu unrolls; it takes
-# any other multiple of 8 through one run-time-K form
+# the cluster sizes whose record loop the heap-tree kernels unroll at
+# compile time; traverse_binned.cu takes any other multiple of 8 through one
+# run-time-K form, traverse_coherent.cu only these
 BINNED_K = (8, 16, 32)
 _INV_CLAMP = 1e18    # 1/d is clamped to +-1e18
 BIN_M = 6            # treelet slots per ray on the binned closest path
@@ -90,9 +94,13 @@ LAUNCHES = {"closest": 0, "any": 0, "binned_closest": 0, "binned_any": 0,
 # Kernel launches per (mode, fanout, half_skip), keyed by variant_key: which
 # form of the kernel each launch ran.
 VARIANT_LAUNCHES: dict = {}
+# Kernel launches per C entry point: which kernel each mode ran.
+ENTRY_LAUNCHES = {"vsnray_traverse": 0, "vsnray_traverse_binned": 0,
+                  "vsnray_traverse_coherent": 0}
 
 _CUDA_DIR = Path(__file__).resolve().parent / "cuda"
-SOURCES = (_CUDA_DIR / "traverse.cu", _CUDA_DIR / "traverse_binned.cu")
+SOURCES = (_CUDA_DIR / "traverse.cu", _CUDA_DIR / "traverse_binned.cu",
+           _CUDA_DIR / "traverse_coherent.cu")
 _BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / \
     "visionaray_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3",
@@ -104,8 +112,9 @@ _LIB = None
 
 
 def reset_launch_counts():
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    for counts in (LAUNCHES, ENTRY_LAUNCHES):
+        for k in counts:
+            counts[k] = 0
     VARIANT_LAUNCHES.clear()
 
 
@@ -121,8 +130,8 @@ def _nvcc() -> str:
             return str(Path(cand, "bin", "nvcc"))
     found = shutil.which("nvcc")
     if found is None:
-        raise RuntimeError("nvcc not found: the traversal kernel is built "
-                           "from ops/cuda/traverse.cu at first use")
+        raise RuntimeError("nvcc not found: the traversal kernels are "
+                           "built from ops/cuda/*.cu at first use")
     return found
 
 
@@ -164,12 +173,16 @@ def build_library(sources, out_dir: Path, flags=NVCC_FLAGS) -> Path:
 def bind_library(lib_path) -> ctypes.CDLL:
     """Load a built library and declare its entry points' arguments."""
     lib = ctypes.CDLL(str(lib_path))
-    lib.vsnray_traverse.argtypes = [ctypes.c_void_p] * 10 + \
-        [ctypes.c_int] * 9 + [ctypes.c_void_p]
-    lib.vsnray_traverse.restype = ctypes.c_int
-    lib.vsnray_traverse_binned.argtypes = [ctypes.c_void_p] * 10 + \
-        [ctypes.c_int] * 8 + [ctypes.c_void_p]
-    lib.vsnray_traverse_binned.restype = ctypes.c_int
+    p, i = ctypes.c_void_p, ctypes.c_int
+    # pointers (rays, nodes, tris[, roots, splits], 4 outputs, counters),
+    # ints, the stream
+    for entry, argtypes in (
+            ("vsnray_traverse", [p] * 10 + [i] * 6 + [p]),
+            ("vsnray_traverse_binned", [p] * 10 + [i] * 8 + [p]),
+            ("vsnray_traverse_coherent", [p] * 8 + [i] * 4 + [p])):
+        fn = getattr(lib, entry)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
     return lib
 
 
@@ -278,12 +291,22 @@ def launch_mode(heap: bool, num_clusters: int, two_pass: bool,
 
 
 def launch_form(heap: bool, num_clusters: int, two_pass: bool,
-                any_hit: bool, fanout: int, half_skip: bool):
+                any_hit: bool, fanout: int, half_skip: bool,
+                cluster_size: int):
     """(C entry point, LAUNCHES key, VARIANT_LAUNCHES key) of one launch:
-    two-pass tiles go to traverse_binned.cu, everything else to
-    traverse.cu."""
+    radix trees go to traverse.cu; coherent tiles on a heap tree at binary
+    descent, without the half skip and with K in BINNED_K to
+    traverse_coherent.cu; every other heap-tree launch (two-pass tiles, and
+    the other coherent forms, whose tiles all start at root 0) to
+    traverse_binned.cu."""
     mode = launch_mode(heap, num_clusters, two_pass, any_hit)
-    entry = "vsnray_traverse_binned" if two_pass else "vsnray_traverse"
+    if not heap:
+        entry = "vsnray_traverse"
+    elif (not two_pass and fanout == 2 and not half_skip
+          and cluster_size in BINNED_K):
+        entry = "vsnray_traverse_coherent"
+    else:
+        entry = "vsnray_traverse_binned"
     return entry, mode, variant_key(mode, fanout, half_skip)
 
 
@@ -335,38 +358,44 @@ def cluster_traverse(rays, nodes, tris, num_clusters: int, cluster_size: int,
         raise ValueError("cluster_traverse: counters must be contiguous "
                          "int32 (npad, 2) on the rays' device")
     entry, mode, key = launch_form(heap, num_clusters, two_pass, any_hit,
-                                   fanout, half_skip)
+                                   fanout, half_skip, cluster_size)
     lib = _library()
     outs = [torch.empty((npad,), dtype=torch.float32, device=rays.device)
             for _ in range(4)]
-    args = [rays.data_ptr(), nodes.data_ptr(), tris.data_ptr(),
-            tile_roots.data_ptr(), tile_splits.data_ptr(),
-            *[o.data_ptr() for o in outs],
-            None if counters is None else counters.data_ptr(),
-            npad, npad // tile_lanes, tile_lanes, num_clusters,
-            cluster_size, int(any_hit)]
-    # traverse_binned.cu's kernels are heap-only and take no heap flag
-    tree = [fanout, int(half_skip)] if two_pass else \
-        [int(heap), fanout, int(half_skip)]
+    outs_cnt = [*[o.data_ptr() for o in outs],
+                None if counters is None else counters.data_ptr()]
+    if entry == "vsnray_traverse_coherent":
+        # every lane starts at the root: no tile metadata
+        args = [rays.data_ptr(), nodes.data_ptr(), tris.data_ptr(),
+                *outs_cnt, npad, num_clusters, cluster_size, int(any_hit)]
+    else:
+        args = [rays.data_ptr(), nodes.data_ptr(), tris.data_ptr(),
+                tile_roots.data_ptr(), tile_splits.data_ptr(), *outs_cnt,
+                npad, npad // tile_lanes, tile_lanes, num_clusters,
+                cluster_size, int(any_hit)]
+        if entry == "vsnray_traverse_binned":
+            args += [fanout, int(half_skip)]
     with torch.cuda.device(rays.device):
         stream = torch.cuda.current_stream(rays.device).cuda_stream
-        err = getattr(lib, entry)(*args, *tree, stream)
+        err = getattr(lib, entry)(*args, stream)
     if err != 0:
         raise RuntimeError(f"{entry} launch failed: cudaError {err}")
     LAUNCHES[mode] += 1
+    ENTRY_LAUNCHES[entry] += 1
     VARIANT_LAUNCHES[key] = VARIANT_LAUNCHES.get(key, 0) + 1
     return tuple(outs)
 
 
 def _mt(o, d, rec):
-    """Moeller-Trumbore of lanes (L, 1) against records (1, M) in the
-    kernel's operation order (traverse.py:258-274); returns (t, b1, b2, ok)
-    each (L, M)."""
+    """Moeller-Trumbore of lanes o, d (L, 3) against records ``rec``, (M,
+    16) shared by every lane or (L, M, 16) per lane, in the kernel's
+    operation order (traverse.py:258-274); returns (t, b1, b2, ok) each
+    (L, M)."""
     ox, oy, oz = o[:, 0:1], o[:, 1:2], o[:, 2:3]
     dx, dy, dz = d[:, 0:1], d[:, 1:2], d[:, 2:3]
-    v1x, v1y, v1z = rec[None, :, 0], rec[None, :, 1], rec[None, :, 2]
-    e1x, e1y, e1z = rec[None, :, 3], rec[None, :, 4], rec[None, :, 5]
-    e2x, e2y, e2z = rec[None, :, 6], rec[None, :, 7], rec[None, :, 8]
+    v1x, v1y, v1z = rec[..., 0], rec[..., 1], rec[..., 2]
+    e1x, e1y, e1z = rec[..., 3], rec[..., 4], rec[..., 5]
+    e2x, e2y, e2z = rec[..., 6], rec[..., 7], rec[..., 8]
     s1x = dy * e2z - dz * e2y
     s1y = dz * e2x - dx * e2z
     s1z = dx * e2y - dy * e2x
