@@ -6,10 +6,9 @@
 Phases, each of which fails the run (non-zero exit) when it fails:
 
 1. Device: the card's name and power limit (nvidia-smi), torch and CUDA
-   versions, and the nvcc build of ops/cuda/traverse.cu,
-   traverse_binned.cu and traverse_coherent.cu, one nvcc each, started
-   together (seconds; ptxas' registers, shared memory, stack and spills of
-   the main path's forms).
+   versions, and the nvcc build of ops/cuda/traverse_binned.cu and
+   traverse_coherent.cu, one nvcc each, started together (seconds; ptxas'
+   registers, shared memory, stack and spills of the main path's forms).
 2. Kernel vs plain version, per traversal mode, on every launch captured
    from the real 1080p frame (sponza-class scene, 259,656 triangles, K=32,
    T=128): coherent closest-hit and any-hit (traverse_coherent.cu), binned
@@ -38,10 +37,17 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    the CPU test's tolerance.
 7. The radix-tree form (row 1e): build_cluster_bvh(treelet_size=0) of the
    260k scene on the card (auto K=32, C=8,115), tables equal to the CPU
-   build; the 1080p frame on it (every bounce coherent on the radix tree),
-   timed as phase 3; its two modes held against the plain version on
-   captured launches as in phase 2.  Then a mesh of 24 triangles (C == 1)
-   rendered at 64x64, and its two modes held the same way.
+   build; (a) the 1080p frame on it (every bounce from the root of the
+   radix tree, on traverse_binned.cu), timed as phase 3, its launches
+   per entry point printed; its two modes held against the plain version
+   on captured launches as in phase 2.  (b) A mesh of 24 triangles
+   (C == 1) rendered at 64x64, and its two modes held the same way.
+   (c) The simple frame: render(scene on the radix tree, cam, 1920, 1080)
+   with defaults only (the simple kernel, uniform sampler), timed as phase
+   3 (simple_frame_s): exactly one radix_closest launch, its image finite
+   and more than half of its pixels hit, the launch held against the plain
+   version; then the same frame on the radix tree at K=40, whose launch
+   runs the kernel's run-time-K form.
 8. Row 1f on phase 3's scene and tree (K=32, so the kd build carries half
    boxes): the 1080p frame under TraceConfig(fanout=4), (fanout=8),
    (half_skip=True) and (fanout=4, half_skip=True), timed as phase 3, each
@@ -89,7 +95,7 @@ from visionaray_torch.kernels.params import KernelParams
 from visionaray_torch.ops.cluster_bvh import build_cluster_bvh
 from visionaray_torch.ops.trace import TraceConfig
 from visionaray_torch.sched import step
-from visionaray_torch.sched.render import _pixel_grid, render_pixels
+from visionaray_torch.sched.render import _pixel_grid, render, render_pixels
 from visionaray_torch.scenes.sponza_like import sponza_like_scene
 from visionaray_torch.shading.lights import PointLights
 
@@ -113,8 +119,7 @@ PEAK_BYTES_S, PEAK_F32_S = 3.35e12, 67e12
 FLOP_TRI, FLOP_BOX = 40, 20      # ops of one triangle / one box test
 REPLACES = "visionaray_tpu/ops/pallas/traverse.py:557"
 # the source of each C entry point of ops/traverse.py::launch_form
-SOURCES = {"vsnray_traverse": "visionaray_torch/ops/cuda/traverse.cu",
-           "vsnray_traverse_binned":
+SOURCES = {"vsnray_traverse_binned":
                "visionaray_torch/ops/cuda/traverse_binned.cu",
            "vsnray_traverse_coherent":
                "visionaray_torch/ops/cuda/traverse_coherent.cu"}
@@ -300,30 +305,28 @@ def ptxas_report(log):
 
 
 def form_name(mangled):
-    """``binned any=0 count=0 fanout=2 half=0 K=32``, ``coherent any=0
-    count=0 K=32`` or ``radix any=0 count=0`` (traverse.cu) from a kernel's
-    mangled name."""
-    m = re.search(r"binned_kernelILb(\d)ELb(\d)ELi(\d)ELb(\d)ELi(\d+)E",
-                  mangled)
+    """``binned any=0 count=0 fanout=2 half=0 K=32 heap=1`` or ``coherent
+    any=0 count=0 K=32`` from a kernel's mangled name (K=0: the run-time-K
+    form; heap=0: a radix tree)."""
+    m = re.search(r"binned_kernelILb(\d)ELb(\d)ELi(\d)ELb(\d)ELi(\d+)E"
+                  r"Lb(\d)E", mangled)
     if m:
-        return ("binned any={} count={} fanout={} half={} K={}"
+        return ("binned any={} count={} fanout={} half={} K={} heap={}"
                 .format(*m.groups()))
     m = re.search(r"coherent_kernelILb(\d)ELb(\d)ELi(\d+)E", mangled)
     if m:
         return "coherent any={} count={} K={}".format(*m.groups())
-    m = re.search(r"traverse_kernelILb(\d)ELb(\d)EE", mangled)
-    if m:
-        return "radix any={} count={}".format(*m.groups())
     return mangled
 
 
 def ptxas_lines(log, main_path=False):
     """One line per kernel form; ``main_path``: only the non-counting forms
-    that the main path's frame and its 1f options run (K=32, heap)."""
+    that the main path's frame and its 1f options (K=32, heap) and the
+    radix frames (K=32, and K=40 in the run-time-K form) run."""
     out = []
     for name, f in ptxas_report(log).items():
-        if main_path and ("count=1" in name or name.startswith("radix")
-                          or "K=32" not in name):
+        if main_path and ("count=1" in name or (
+                "K=32" not in name and not name.endswith("K=0 heap=0"))):
             continue
         out.append(f"{name}: {f['regs']} registers, {f['smem']} B smem, "
                    f"{f['stack']} B stack, {f['spill']} B spills")
@@ -662,6 +665,35 @@ def radix_phase(scene, cam, cpu_mesh, dev):
     return rbvh, frame, same and shape_ok, build_s
 
 
+def simple_phase(scene, cam, label, check_modes):
+    """Phase 7c: render(scene, cam, 1920, 1080) with defaults only (the
+    simple kernel) on a radix tree, timed as phase 3: exactly one
+    radix_closest launch, its image finite and mostly hit, the launch held
+    against the plain version."""
+    def frame(num):
+        rt = render(scene, cam, WIDTH, HEIGHT)
+        return rt.color.reshape(-1, 4), rt.depth.reshape(-1)
+
+    rec, launches, warm_s, times, color, depth = timed_frames(frame)
+    frame_s = sum(times) / len(times)
+    finite = bool(torch.isfinite(color).all())
+    hit = float((depth > 0).float().mean())
+    K = scene.bvh.cluster_size
+    ok = (finite and hit > 0.5 and launches["radix_closest"] == 1
+          and sum(launches.values()) == 1
+          and rec.entries["vsnray_traverse_binned"] == 1)
+    log(f"simple frame{label} 1920x1080 render() defaults on the radix tree "
+        f"(K={K} C={scene.bvh.num_clusters}): simple_frame_s={frame_s:.4f} "
+        f"(frames {', '.join(f'{t:.4f}' for t in times)}) "
+        f"warm_s={warm_s:.3f} launches={launches} entry_launches="
+        f"{rec.entries} hit_fraction={hit:.4f} image_mean="
+        f"{float(color[:, :3].mean()):.6f} finite={finite} "
+        f"{'OK' if ok else 'FAIL'}")
+    ok &= check_modes([("radix_closest", f"traverse_radix_closest_simple"
+                        f"{label}", "1e")], rec, scene.bvh, launches)
+    return ok, frame_s
+
+
 def c1_scene(device):
     """24 triangles in one cluster (K=32 gives C == 1), lit by a point
     light, seen by a camera in front: phase 7b."""
@@ -784,8 +816,7 @@ def profile_run(run, label, table_path=None):
     dev_rows = sorted((e for e in ka
                        if e.device_type == torch.autograd.DeviceType.CUDA),
                       key=dev_us, reverse=True)
-    groups = {"traverse_kernel": ("traverse_kernel", "binned_kernel",
-                                  "coherent_kernel"),
+    groups = {"traverse_kernel": ("binned_kernel", "coherent_kernel"),
               "sort": ("Sort", "sort", "Radix", "radix"),
               "gather_scatter": ("gather", "index", "scatter", "Index"),
               "reduce": ("reduce_kernel",),
@@ -943,16 +974,20 @@ def main() -> int:
         radix_ok = (rfinite and rstd > 0 and rhit > 0.5
                     and all(rlaunches[k] > 0 for k, _, _ in RADIX_MODES)
                     and sum(rlaunches.values()) == sum(
-                        rlaunches[k] for k, _, _ in RADIX_MODES))
+                        rlaunches[k] for k, _, _ in RADIX_MODES)
+                    and rrec.entries["vsnray_traverse_binned"] == sum(
+                        rlaunches.values()))
         log(f"radix frame 1920x1080 spp=1 bounces=5 nee: "
             f"frame_s={rframe_s:.4f} (frames "
             f"{', '.join(f'{t:.4f}' for t in rtimes)}) warm_s={rwarm_s:.3f} "
             f"mrays_per_s={rays / rframe_s / 1e6:.3f} launches={rlaunches} "
+            f"entry_launches={rrec.entries} "
             f"hit_fraction={rhit:.4f} image_mean="
             f"{float(rcolor[:, :3].mean()):.6f} image_std={rstd:.6f} "
             f"finite={rfinite} {'OK' if radix_ok else 'FAIL'}")
         all_ok &= radix_ok
         all_ok &= check_modes(RADIX_MODES, rrec, rbvh, rlaunches)
+        rentries = rrec.entries
         del rrec
 
         # ---- phase 7b: a single-cluster tree (C == 1)
@@ -978,6 +1013,18 @@ def main() -> int:
         all_ok &= c1_ok
         all_ok &= check_modes(C1_MODES, crec, c1.bvh, claunches)
         del crec
+
+        # ---- phase 7c: the simple frame on the radix tree, render's
+        # defaults only; then on the radix tree at K=40
+        simple = {}
+        for label, sbvh in (("", rbvh), ("_k40", None)):
+            if sbvh is None:
+                sbvh = build_cluster_bvh(scene.mesh, cluster_size=40,
+                                         treelet_size=0)
+            ok, simple[f"simple_frame{label}_s"] = simple_phase(
+                dataclasses.replace(scene, bvh=sbvh), cam, label,
+                check_modes)
+            all_ok &= ok
 
     with torch.no_grad():
         # ---- phase 8: row 1f, the four options on the main path's frame
@@ -1036,6 +1083,7 @@ def main() -> int:
                     "mrays_per_s": rays / frame_s / 1e6,
                     "training_step": step_info,
                     "radix_frame_s": rframe_s,
+                    "radix_entry_launches": rentries, **simple,
                     "radix_bvh_build_s": rbuild_s,
                     "frames_1f": frames_1f, "training_step_1f": step_1f,
                     "switch_frames": switch_frames,

@@ -1,21 +1,26 @@
-"""Coherence of the traversal kernels' coherent launches, read from a plain
-walk (no counter in any timed kernel).
+"""Coherence of the traversal kernels' launches from the root, read from a
+plain walk (no counter in any timed kernel).
 
     python3 scripts/torch_coherence.py [--warps N]    # on the GPU
     python3 scripts/torch_coherence.py --small        # on the CPU
 
-Captures the coherent launches (every lane from the root of the heap tree)
-of chip_smoke.py's 1080p frame -- mode 1 (bounce 0's camera rays) and mode
-1d (bounce 0's NEE shadow rays) -- and the mode-1d launches of the same
-frame under TraceConfig(shadow_binned=False) (bounce 0's shadows, then
-bounces 1-4's, which are incoherent), on N sampled warps of each launch
-(every warp that holds a live lane, evenly spaced; default 512).
-``--small`` does the same on the CPU on chip_smoke.py's small
-configuration (sponza_like 4000, K=8, T=16) at 64x64, on every warp.
+Captures the launches from the root of chip_smoke.py's 1080p frame on the
+heap tree -- mode 1 (bounce 0's camera rays) and mode 1d (bounce 0's NEE
+shadow rays) -- the mode-1d launches of the same frame under
+TraceConfig(shadow_binned=False) (bounce 0's shadows, then bounces 1-4's,
+which are incoherent), the radix frame's launches (every bounce's
+closest-hit and NEE shadow rays on the radix tree of the same scene,
+build_cluster_bvh(treelet_size=0)) and the simple frame's one launch on
+that tree (render with defaults only, chip_smoke.py phase 7c), on N
+sampled warps of each launch (every warp that holds a live lane, evenly
+spaced; default 512).  ``--small`` does the same on the CPU on
+chip_smoke.py's small configuration (sponza_like 4000, K=8, T=16, and its
+radix tree at K=8) at 64x64, on every warp.
 
 ``walk_plain`` walks each sampled lane through the tree as the one-lane
 walk does (near child first by its own slab entry, popped nodes behind the
-best hit skipped) and returns the clusters each lane visits.  Per launch
+best hit skipped; children 2n+1 / 2n+2 on a heap, the kids columns on a
+radix tree) and returns the clusters each lane visits.  Per launch
 the script prints, over live lanes and warps of 32 consecutive lanes:
 clusters visited per lane, distinct clusters per warp, and lanes per
 distinct cluster (visits / distinct (warp, cluster) pairs: the lanes a
@@ -38,7 +43,9 @@ import visionaray_torch.ops.traverse as trav  # noqa: E402
 from visionaray_torch.kernels.params import KernelParams  # noqa: E402
 from visionaray_torch.ops.cluster_bvh import build_cluster_bvh  # noqa: E402
 from visionaray_torch.ops.trace import TraceConfig  # noqa: E402
-from visionaray_torch.sched.render import _pixel_grid, render_pixels  # noqa: E402
+from visionaray_torch.sched.render import (  # noqa: E402
+    _pixel_grid, render, render_pixels,
+)
 from visionaray_torch.scenes.sponza_like import sponza_like_scene  # noqa: E402
 
 SLAB_PAD = 1e-6      # traverse_common.cuh kSlabPad
@@ -58,21 +65,25 @@ def _box_entry(box, o, inv, bt):
     return torch.where(ok, tn, math.inf)
 
 
-def walk_plain(rays, nodes, tris, num_clusters, cluster_size, any_hit):
-    """The one-lane walk of every lane from the root of a heap tree, as
-    plain PyTorch over all lanes at once.  Returns (t, prim, visits):
-    (npad,) each, and visits (V, 2) int64 rows (lane, cluster) in the order
-    the lanes' leaf steps happen."""
+def walk_plain(rays, nodes, tris, num_clusters, cluster_size, any_hit,
+               heap=True, depth=None):
+    """The one-lane walk of every lane from the root of a heap tree (or,
+    with ``heap`` False, of a radix tree of ``depth`` levels), as plain
+    PyTorch over all lanes at once.  Returns (t, prim, visits): (npad,)
+    each, and visits (V, 2) int64 rows (lane, cluster) in the order the
+    lanes' leaf steps happen."""
     npad = rays.shape[0]
     dev = rays.device
     C, K = num_clusters, cluster_size
     o, d, mt = rays[:, 0:3], rays[:, 3:6], rays[:, 6]
     inv = torch.clamp(1.0 / d, -trav._INV_CLAMP, trav._INV_CLAMP)
     recs = tris.reshape(C, K, 16)
+    kids = nodes[:, 6:8].to(torch.int64)
     bt = mt.clone()
     bp = torch.full((npad,), -1.0, device=dev)
     leaf_base = C - 1
-    depth = int(math.log2(C))
+    if heap:
+        depth = int(math.log2(C))
     node = torch.zeros(npad, dtype=torch.int64, device=dev)
     sp = torch.zeros(npad, dtype=torch.int64, device=dev)
     stack_n = torch.zeros((npad, depth + 1), dtype=torch.int64, device=dev)
@@ -89,7 +100,10 @@ def walk_plain(rays, nodes, tris, num_clusters, cluster_size, any_hit):
         # inner lanes: both children, near first, the other pushed
         ii, ni = act[~at_leaf], n[~at_leaf]
         if ii.numel():
-            left, right = 2 * ni + 1, 2 * ni + 2
+            if heap:
+                left, right = 2 * ni + 1, 2 * ni + 2
+            else:
+                left, right = kids[ni, 0], kids[ni, 1]
             tl = _box_entry(nodes[left], o[ii], inv[ii], bt[ii])
             tr = _box_entry(nodes[right], o[ii], inv[ii], bt[ii])
             hl, hr = tl < math.inf, tr < math.inf
@@ -153,10 +167,12 @@ def coherence(rays, bvh, any_hit, warps):
     lanes = (live_w[:, None] * 32 + torch.arange(32, device=dev)).reshape(-1)
     sub = rays[lanes].contiguous()
     C, K = bvh.num_clusters, bvh.cluster_size
-    t, p, visits = walk_plain(sub, bvh.nodes, bvh.tris, C, K, any_hit)
+    t, p, visits = walk_plain(sub, bvh.nodes, bvh.tris, C, K, any_hit,
+                              heap=bvh.heap, depth=bvh.depth)
     roots, splits = trav._default_tiles(sub.shape[0], sub.shape[0], dev)
     pt, pp, _, _ = trav.traverse_plain(sub, bvh.nodes, bvh.tris, C, K,
-                                       sub.shape[0], any_hit, roots, splits)
+                                       sub.shape[0], any_hit, roots, splits,
+                                       heap=bvh.heap)
     live = sub[:, 6] >= 0
     if any_hit:
         disagree = int((live & ((p >= 0) != (pp >= 0))).sum())
@@ -216,23 +232,29 @@ def main() -> int:
         W, H = cs.WIDTH, cs.HEIGHT
         x, y = cs.swizzled_pixels(dev)
         warps = args.warps
-    bvh = params.scene.bvh
+    scene = params.scene
+    radix = dataclasses.replace(scene, bvh=build_cluster_bvh(
+        scene.mesh, cluster_size=scene.bvh.cluster_size, treelet_size=0))
 
-    def frame(cfg):
-        p = dataclasses.replace(params, trace=cfg)
+    def frame(cfg, s=scene):
+        p = dataclasses.replace(params, scene=s, trace=cfg)
         return lambda: render_pixels(p, cam, x, y, W, H, "pathtracing", 1,
                                      "jittered_blend", 1, nee=True)
 
     out = {}
     with torch.no_grad():
-        runs = [("default", TraceConfig(), ("closest", "any")),
-                ("shadow_binned=False", TraceConfig(shadow_binned=False),
-                 ("any",))]
-        for label, cfg, keys in runs:
-            for key, launches in captured(frame(cfg), keys).items():
+        runs = [("default", frame(TraceConfig()), ("closest", "any"), scene),
+                ("shadow_binned=False",
+                 frame(TraceConfig(shadow_binned=False)), ("any",), scene),
+                ("radix frame", frame(TraceConfig(), radix),
+                 ("radix_closest", "radix_any"), radix),
+                ("simple frame", lambda: render(radix, cam, W, H),
+                 ("radix_closest",), radix)]
+        for label, run, keys, s in runs:
+            for key, launches in captured(run, keys).items():
                 for idx, ln in enumerate(launches):
                     name = f"{label} {key} launch {idx}"
-                    out[name] = coherence(ln["rays"], bvh, ln["any_hit"],
+                    out[name] = coherence(ln["rays"], s.bvh, ln["any_hit"],
                                           warps)
                     print(f"{name}: {json.dumps(out[name])}", flush=True)
     if not args.small:

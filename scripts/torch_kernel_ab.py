@@ -9,13 +9,16 @@ into the git-ignored ``build/``); FLAGs are extra nvcc flags, e.g.
 builds at once.  The script captures every traversal launch of
 chip_smoke.py's 1080p frame (modes 1, 1b, 1c, 1d), the mode-1d launches of
 the same frame under TraceConfig(shadow_binned=False) (bounce 0's shadows,
-then bounces 1-4's, incoherent), and the coherent launches (modes 1, 1d)
-of the frame under each 1f option of chip_smoke.OPTIONS_1F, and times every
-version on each of them in turns (ROUNDS rounds, the order rotated each
-round), each launch in the form it was captured with.  A version with
-``vsnray_traverse_coherent`` routes launches as ``launch_form`` does; an
-older one sends the two-pass launches to ``vsnray_traverse_binned`` where
-it has it and everything else to ``vsnray_traverse``.  Prints:
+then bounces 1-4's, incoherent), the coherent launches (modes 1, 1d) of
+the frame under each 1f option of chip_smoke.OPTIONS_1F, every launch of
+the radix frame (chip_smoke.py phase 7a: the same frame on the scene's
+radix tree, modes radix_closest and radix_any), the simple frame's one
+launch on that tree (phase 7c) and the C == 1 frame's launches (phase
+7b), and times every version on each of them in turns (ROUNDS rounds, the
+order rotated each round), each launch in the form it was captured with.
+A version routes launches as ``launch_form`` does; one that still has
+``vsnray_traverse`` (traverse.cu, before the radix trees moved to the
+other two kernels) sends the radix launches there.  Prints:
 
 - per group of launches, the least and the mean over rounds of the first
   launch's ms and of the ms summed over the group's launches;
@@ -26,9 +29,10 @@ it has it and everything else to ``vsnray_traverse``.  Prints:
 - the default frame rendered through each version, its image against the
   first version's (chip_smoke.py's image tolerances);
 - registers, shared memory and spills (ptxas) of each version's main-path
-  forms, and whether the SASS of each non-counting radix form
-  (traverse.cu) and two-pass form (traverse_binned.cu) equals the first
-  version's.
+  forms, and whether the SASS of each heap-tree form of
+  traverse_coherent.cu (counting ones too) and each non-counting heap-tree
+  form of traverse_binned.cu equals the first version's (and of each
+  radix form, where the first version has it).
 """
 
 import ctypes
@@ -48,22 +52,32 @@ from visionaray_torch.kernels.params import KernelParams  # noqa: E402
 from visionaray_torch.ops.cluster_bvh import build_cluster_bvh  # noqa: E402
 from visionaray_torch.ops.trace import TraceConfig  # noqa: E402
 from visionaray_torch.scenes.sponza_like import sponza_like_scene  # noqa: E402
-from visionaray_torch.sched.render import render_pixels  # noqa: E402
+from visionaray_torch.sched.render import (  # noqa: E402
+    _pixel_grid, render, render_pixels,
+)
 
 BUILD = Path(__file__).resolve().parents[1] / "build" / "kernel_ab"
 ROUNDS = 4
 
 
 def sass_key(name):
-    """A readable key of a non-counting radix or two-pass kernel form, from
-    its SASS function name (the radix forms of a tree before traverse.cu
-    was cut to them carry heap=0, fanout 2, no half skip), else None."""
-    m = re.search(r"traverse_kernelILb(\d)ELb0E(?:Lb0ELi2ELb0E)?E", name)
+    """A readable key of a kernel form whose SASS is compared, from its SASS
+    function name: every coherent form, the non-counting two-pass forms,
+    the non-counting radix forms (traverse.cu's, or traverse_binned.cu's
+    with kHeap false); two-pass forms from before the kernel took
+    ``kHeap`` are heap forms.  Else None."""
+    m = re.search(r"traverse_kernelILb(\d)ELb0EE", name)
     if m:
         return f"radix any={m.group(1)}"
-    m = re.search(r"binned_kernelILb(\d)ELb0ELi(\d)ELb(\d)ELi(\d+)E", name)
+    m = re.search(r"coherent_kernelILb(\d)ELb(\d)ELi(\d+)E", name)
     if m:
-        return "binned any={} fanout={} half={} K={}".format(*m.groups())
+        return "coherent any={} count={} K={}".format(*m.groups())
+    m = re.search(r"binned_kernelILb(\d)ELb0ELi(\d)ELb(\d)ELi(\d+)E"
+                  r"(?:Lb(\d)E)?", name)
+    if m:
+        kind = "binned" if m.group(5) in (None, "1") else "binned-radix"
+        return "{} any={} fanout={} half={} K={}".format(kind,
+                                                          *m.groups()[:4])
     return None
 
 
@@ -76,29 +90,25 @@ class Version:
         self.name = name
         self.sources = sorted(path.glob("*.cu")) if path.is_dir() else [path]
         text = "".join(p.read_text() for p in self.sources)
-        self.coherent = "vsnray_traverse_coherent" in text
-        self.binned = "vsnray_traverse_binned" in text
+        # traverse.cu's entry: radix trees there, no heap arguments elsewhere
+        self.radix_entry = 'extern "C" int vsnray_traverse(' in text
         self.dir = BUILD / name
         self.flags = [*trav.NVCC_FLAGS, *flags]
 
     def build(self):
         so = trav.build_library(self.sources, self.dir, self.flags)
         self.log = (self.dir / "nvcc.log").read_text()
-        if self.coherent:
-            self.lib = trav.bind_library(so)
-        else:
-            # the layout before traverse_coherent.cu: vsnray_traverse takes
-            # heap, fanout and half_skip
+        if self.radix_entry:
             self.lib = ctypes.CDLL(str(so))
-            self.lib.vsnray_traverse.argtypes = (
-                [ctypes.c_void_p] * 10 + [ctypes.c_int] * 9
-                + [ctypes.c_void_p])
-            self.lib.vsnray_traverse.restype = ctypes.c_int
-            if self.binned:
-                self.lib.vsnray_traverse_binned.argtypes = (
-                    [ctypes.c_void_p] * 10 + [ctypes.c_int] * 8
-                    + [ctypes.c_void_p])
-                self.lib.vsnray_traverse_binned.restype = ctypes.c_int
+            p, i = ctypes.c_void_p, ctypes.c_int
+            for entry, argtypes in (
+                    ("vsnray_traverse", [p] * 10 + [i] * 6 + [p]),
+                    ("vsnray_traverse_binned", [p] * 10 + [i] * 8 + [p]),
+                    ("vsnray_traverse_coherent", [p] * 8 + [i] * 4 + [p])):
+                getattr(self.lib, entry).argtypes = argtypes
+                getattr(self.lib, entry).restype = ctypes.c_int
+        else:
+            self.lib = trav.bind_library(so)
         cuobjdump = Path(trav._nvcc()).with_name("cuobjdump")
         sass = subprocess.run([str(cuobjdump), "-sass", str(so)],
                               capture_output=True, text=True,
@@ -127,21 +137,18 @@ class Version:
         tiles = [roots.data_ptr(), splits.data_ptr()]
         tail = [*[o.data_ptr() for o in outs], None]
         stream = torch.cuda.current_stream().cuda_stream
-        if self.coherent:
-            entry = trav.launch_form(True, C, two_pass, bool(any_hit),
-                                     fanout, bool(half), K)[0]
-        elif self.binned and two_pass:
-            entry = "vsnray_traverse_binned"
-        else:
+        heap = [] if self.radix_entry else [int(bvh.heap)]
+        entry = trav.launch_form(bvh.heap, C, two_pass, bool(any_hit),
+                                 fanout, bool(half), K)[0]
+        if self.radix_entry and not bvh.heap:
             entry = "vsnray_traverse"
         if entry == "vsnray_traverse_coherent":
             args = [*head, *tail, npad, C, K, any_hit]
         elif entry == "vsnray_traverse_binned":
             args = [*head, *tiles, *tail, npad, npad // tl, tl, C, K, any_hit,
-                    fanout, half]
-        else:   # the heap forms of traverse.cu before traverse_coherent.cu
-            args = [*head, *tiles, *tail, npad, npad // tl, tl, C, K, any_hit,
-                    1, fanout, half]
+                    fanout, half, *heap]
+        else:   # traverse.cu's radix forms
+            args = [*head, *tiles, *tail, npad, npad // tl, tl, C, K, any_hit]
         err = getattr(self.lib, entry)(*args, stream)
         if err:
             raise RuntimeError(f"{self.name}: {entry} failed, cudaError "
@@ -181,11 +188,13 @@ def main() -> int:
         versions = list(pool.map(Version.build, versions))
     first = versions[0]
     for v in versions:
-        for kind in ("radix", "binned"):
-            keys = sorted(k for k in v.sass if k.startswith(kind))
+        for kind in ("coherent", "binned", "radix", "binned-radix"):
+            keys = sorted(k for k in v.sass if k.split(" ")[0] == kind)
+            if not keys:
+                continue
             same = [k for k in keys if first.sass.get(k) == v.sass[k]]
-            print(f"{v.name}: SASS of {len(keys)} non-counting {kind} forms; "
-                  f"equal to {first.name}'s: {len(same)}/{len(keys)}"
+            print(f"{v.name}: SASS of {len(keys)} {kind} forms; equal to "
+                  f"{first.name}'s: {len(same)}/{len(keys)}"
                   + ("" if len(same) == len(keys) else
                      f" (differ: {sorted(set(keys) - set(same))[:8]})"))
         for line in cs.ptxas_lines(v.log, main_path=True):
@@ -196,38 +205,57 @@ def main() -> int:
         scene, cam = sponza_like_scene(target_tris=cs.TARGET_TRIS, device=dev)
         scene.bvh = bvh = build_cluster_bvh(scene.mesh, cluster_size=cs.K,
                                             treelet_size=cs.T)
+        radix = dataclasses.replace(scene, bvh=build_cluster_bvh(
+            scene.mesh, treelet_size=0))
         params = KernelParams.create(
             scene, num_bounces=cs.BOUNCES, epsilon=1e-3,
             bg_color=(0.2, 0.3, 0.5, 1.0), ambient_color=(1.0, 1.0, 1.0, 1.0))
         x, y = cs.swizzled_pixels(dev)
+        c1, c1_cam = cs.c1_scene(dev)
+        cx, cy = _pixel_grid(64, 64, dev)
 
-        def frame(cfg=TraceConfig()):
-            p = dataclasses.replace(params, trace=cfg)
+        def frame(cfg=TraceConfig(), s=scene):
+            p = dataclasses.replace(params, scene=s, trace=cfg)
             return render_pixels(p, cam, x, y, cs.WIDTH, cs.HEIGHT,
                                  "pathtracing", cs.SPP, "jittered_blend", 1,
                                  nee=True)
 
-        def capture(cfg, keys):
+        def c1_frame():
+            p = dataclasses.replace(params, scene=c1, num_bounces=2)
+            return render_pixels(p, c1_cam, cx, cy, 64, 64, "pathtracing", 1,
+                                 "jittered_blend", 1, nee=True)
+
+        def capture(run, keys):
             rec = cs.LaunchRecorder(trav.cluster_traverse)
             with cs.recorded(rec):
-                frame(cfg)
+                run()
             return {k: rec.launches[k] for k in keys}
 
-        # (label, mode key, launches)
+        # (label, launches, tree)
         groups = []
-        default = capture(TraceConfig(), [k for k, _, _ in cs.MODES])
-        groups += [(f"{row} ({key})", key, default[key])
+        default = capture(frame, [k for k, _, _ in cs.MODES])
+        groups += [(f"{row} ({key})", default[key], bvh)
                    for key, _, row in cs.MODES]
-        shadows = capture(TraceConfig(shadow_binned=False), ["any"])["any"]
-        groups.append(("1d shadow_binned=False, bounce 0", "any",
-                       shadows[:1]))
+        shadows = capture(lambda: frame(TraceConfig(shadow_binned=False)),
+                          ["any"])["any"]
+        groups.append(("1d shadow_binned=False, bounce 0", shadows[:1], bvh))
         groups.append(("1d shadow_binned=False, bounces 1-4 (incoherent)",
-                       "any", shadows[1:]))
+                       shadows[1:], bvh))
         for option, cfg in cs.OPTIONS_1F.items():
-            got = capture(cfg, cs.COHERENT)
-            groups += [(f"1f {option} {key}", key, got[key])
+            got = capture(lambda: frame(cfg), cs.COHERENT)
+            groups += [(f"1f {option} {key}", got[key], bvh)
                        for key in cs.COHERENT]
-        for label, _, lns in groups:
+        got = capture(lambda: frame(s=radix), ("radix_closest", "radix_any"))
+        groups += [(f"1e radix frame {key}", got[key], radix.bvh)
+                   for key in got]
+        got = capture(lambda: render(radix, cam, cs.WIDTH, cs.HEIGHT),
+                      ("radix_closest",))
+        groups.append(("1e simple frame radix_closest", got["radix_closest"],
+                       radix.bvh))
+        got = capture(c1_frame, ("c1_closest", "c1_any"))
+        groups += [(f"1e C == 1 frame {key}", got[key], c1.bvh)
+                   for key in got]
+        for label, lns, _ in groups:
             print(f"{label}: {len(lns)} launches, live lanes "
                   f"{[int((ln['rays'][:, 6] >= 0).sum()) for ln in lns]}")
 
@@ -235,12 +263,12 @@ def main() -> int:
         for rnd in range(ROUNDS):
             for v in versions[rnd % len(versions):] + \
                     versions[:rnd % len(versions)]:
-                for label, _, lns in groups:
-                    times = [cs.cuda_ms(lambda: v.call(ln, bvh), 3)
+                for label, lns, tree in groups:
+                    times = [cs.cuda_ms(lambda: v.call(ln, tree), 3)
                              for ln in lns]
                     first_ms.setdefault((label, v.name), []).append(times[0])
                     sum_ms.setdefault((label, v.name), []).append(sum(times))
-        for label, _, lns in groups:
+        for label, lns, _ in groups:
             for what, table in (("first launch", first_ms),
                                 (f"sum of {len(lns)} launches", sum_ms)):
                 print(f"{label} ms, {what}, least/mean of {ROUNDS}: "
@@ -250,34 +278,39 @@ def main() -> int:
                           for v in versions))
 
         for v in versions[1:]:
-            for label, key, lns in groups:
+            for label, lns, tree in groups:
                 equal, prim_diff = True, 0
+                any_hit = lns[0]["any_hit"]
                 for ln in lns:
-                    e, p = compare(v.call(ln, bvh), first.call(ln, bvh),
-                                   ln["rays"], ln["any_hit"])
+                    e, p = compare(v.call(ln, tree), first.call(ln, tree),
+                                   ln["rays"], any_hit)
                     equal &= e
                     prim_diff += p
                 print(f"{v.name} vs {first.name}, {label}: "
-                      + ("hit flags equal" if key == "any"
+                      + ("hit flags equal" if any_hit
                          else "t equal on live lanes, u, v equal where "
                               "prims agree")
-                      + f": {equal}" + ("" if key == "any" else
+                      + f": {equal}" + ("" if any_hit else
                                         f"; lanes whose prim differs "
                                         f"(a tie at equal t): {prim_diff}"))
         images = {}
         real = trav.cluster_traverse
         for v in versions:
-            trav.cluster_traverse = v.traverse(bvh)
-            try:
-                images[v.name] = frame()[0]
-            finally:
-                trav.cluster_traverse = real
+            for name, s in (("default", scene), ("radix", radix)):
+                trav.cluster_traverse = v.traverse(s.bvh)
+                try:
+                    images[name, v.name] = frame(s=s)[0]
+                finally:
+                    trav.cluster_traverse = real
         for v in versions[1:]:
-            mean_abs, share = cs.image_diff(images[v.name], images[first.name])
-            ok = mean_abs <= cs.IMG_MEAN_ABS and share <= cs.IMG_PIX_SHARE
-            print(f"{v.name} vs {first.name}: default frame image mean_abs="
-                  f"{mean_abs:.3e} pixels_over_{cs.IMG_PIX_TOL:g}={share:.4f} "
-                  f"{'OK' if ok else 'FAIL'}")
+            for name in ("default", "radix"):
+                mean_abs, share = cs.image_diff(images[name, v.name],
+                                                images[name, first.name])
+                ok = mean_abs <= cs.IMG_MEAN_ABS and share <= cs.IMG_PIX_SHARE
+                print(f"{v.name} vs {first.name}: {name} frame image "
+                      f"mean_abs={mean_abs:.3e} pixels_over_"
+                      f"{cs.IMG_PIX_TOL:g}={share:.4f} "
+                      f"{'OK' if ok else 'FAIL'}")
     print(f"card: {cs.nvidia_smi_line()}")
     return 0
 

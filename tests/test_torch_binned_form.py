@@ -72,8 +72,9 @@ def test_launch_form_keys(fanout, half_skip):
     """Two-pass tiles go to traverse_binned.cu's entry point, coherent tiles
     on a heap tree to traverse_coherent.cu's at binary descent without the
     half skip and K in BINNED_K, and to traverse_binned.cu's otherwise;
-    radix trees to traverse.cu's.  LAUNCHES and VARIANT_LAUNCHES keep their
-    keys per mode and per (fanout, half_skip)."""
+    radix trees (C == 1 too) to traverse_binned.cu's at every K.
+    LAUNCHES and VARIANT_LAUNCHES keep their keys per mode and per
+    (fanout, half_skip)."""
     suffix = f"/fanout{fanout}" + ("/half_skip" if half_skip else "")
     for any_hit, kind in ((False, "closest"), (True, "any")):
         for K in (*trav.BINNED_K, 40):
@@ -88,7 +89,9 @@ def test_launch_form_keys(fanout, half_skip):
                 "vsnray_traverse_coherent" if coherent
                 else "vsnray_traverse_binned", kind, kind + suffix)
     assert trav.launch_form(False, 1, False, True, 2, False, 32)[:2] == (
-        "vsnray_traverse", "c1_any")
+        "vsnray_traverse_binned", "c1_any")
+    assert trav.launch_form(False, 8115, False, False, 2, False, 40)[:2] == (
+        "vsnray_traverse_binned", "radix_closest")
     assert set(trav.LAUNCHES) >= {"binned_closest", "binned_any"}
 
 

@@ -1,12 +1,12 @@
 """The Python around the coherent kernel (ops/cuda/traverse_coherent.cu) on
-the CPU: the entry point each launch form goes to, that every entry takes
-the forms sent to it and that no coherent form the wrapper took before the
-kernel existed is refused now, the library's sources, the coherent front
-ends still equal to the JAX package's (interpret mode) with
+the CPU: the entry point each launch form goes to (radix trees and C == 1
+included), that every entry takes the forms sent to it and that no form
+the wrapper took before is refused now, the library's sources, the
+coherent front ends still equal to the JAX package's (interpret mode) with
 test_torch_traverse.py's tolerances, and the plain walk that
-scripts/torch_coherence.py reads the coherence from.  The kernel itself is
-held against the plain version on the card by
-tests/test_torch_cuda_traverse.py."""
+scripts/torch_coherence.py reads the coherence from, on heap and radix
+trees.  The kernel itself is held against the plain version on the card
+by tests/test_torch_cuda_traverse.py."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -17,24 +17,25 @@ from scripts.torch_coherence import walk_plain
 from test_torch_traverse import _fixture, _record_pair
 from visionaray_tpu.ops.pallas import traverse as jtrav
 from visionaray_tpu.scenes import random_triangles
+from visionaray_torch.core.scene import TriangleMesh
 from visionaray_torch.ops import traverse as trav
+from visionaray_torch.ops.cluster_bvh import build_cluster_bvh
 from visionaray_torch.ops.trace import intersect_triangles_brute
 
 torch.set_num_threads(1)
 KS = (8, 16, 24, 32, 40)   # the unrolled sizes, and two run-time-K ones
-ENTRIES = ("vsnray_traverse", "vsnray_traverse_binned",
-           "vsnray_traverse_coherent")
+ENTRIES = ("vsnray_traverse_binned", "vsnray_traverse_coherent")
 
 
 def _takes(entry, heap, two_pass, fanout, half_skip, K):
     """Whether the C entry point launches this form (its own switch over
     the forms it was compiled in; cudaErrorInvalidValue otherwise)."""
-    if entry == "vsnray_traverse":          # radix trees
-        return not heap and not two_pass and fanout == 2 and not half_skip
     if entry == "vsnray_traverse_coherent":
         return (heap and not two_pass and fanout == 2 and not half_skip
                 and K in trav.BINNED_K)
-    return (heap and K > 0 and K % 8 == 0 and fanout in trav.FANOUTS
+    if not heap:     # radix trees: lane_walk, binary descent, no half skip
+        return K > 0 and K % 8 == 0 and fanout == 2 and not half_skip
+    return (K > 0 and K % 8 == 0 and fanout in trav.FANOUTS
             and (not half_skip or K >= 16))
 
 
@@ -61,9 +62,7 @@ def test_launch_form_entry(K, any_hit):
         C = 8192 if heap else 8115
         entry, mode, key = trav.launch_form(heap, C, two_pass, any_hit,
                                             fanout, half_skip, K)
-        if not heap:
-            want = "vsnray_traverse"
-        elif two_pass:
+        if two_pass or not heap:
             want = "vsnray_traverse_binned"
         elif fanout == 2 and not half_skip and K in (8, 16, 32):
             want = "vsnray_traverse_coherent"
@@ -77,21 +76,21 @@ def test_launch_form_entry(K, any_hit):
         if _accepted(heap, two_pass, fanout, half_skip, K):
             assert _takes(entry, heap, two_pass, fanout, half_skip, K)
     assert trav.launch_form(False, 1, False, any_hit, 2, False, K)[:2] == (
-        "vsnray_traverse", "c1_" + kind)
+        "vsnray_traverse_binned", "c1_" + kind)
 
 
 def test_sources_and_counts():
-    """The library is built from all three kernel sources, each holding one
-    entry point; ENTRY_LAUNCHES counts per entry point and resets with the
-    other counts."""
+    """The library is built from both kernel sources, each holding one
+    entry point, and no other source sits beside them (radix trees run
+    traverse_binned.cu's lane walk); ENTRY_LAUNCHES counts per entry
+    point and resets with the other counts."""
     names = sorted(p.name for p in trav.SOURCES)
-    assert names == ["traverse.cu", "traverse_binned.cu",
-                     "traverse_coherent.cu"]
+    assert names == ["traverse_binned.cu", "traverse_coherent.cu"]
+    assert sorted(p.name for p in trav._CUDA_DIR.glob("*.cu")) == names
     for src in trav.SOURCES:
         text = src.read_text()
         assert [e for e in ENTRIES if f'extern "C" int {e}(' in text] == [
-            {"traverse.cu": "vsnray_traverse",
-             "traverse_binned.cu": "vsnray_traverse_binned",
+            {"traverse_binned.cu": "vsnray_traverse_binned",
              "traverse_coherent.cu": "vsnray_traverse_coherent"}[src.name]]
     assert set(trav.ENTRY_LAUNCHES) == set(ENTRIES)
     trav.ENTRY_LAUNCHES["vsnray_traverse_coherent"] += 1
@@ -203,5 +202,58 @@ def test_walk_plain_matches_plain(fan, any_hit):
         assert torch.equal(t, pt)
     assert int((pp >= 0).sum()) >= 16
     assert bool((rays[visits[:, 0], 6] >= 0).all())
+    pairs = visits[:, 0] * bvh.num_clusters + visits[:, 1]
+    assert torch.unique(pairs).numel() == pairs.numel()
+
+
+def _radix_case(kind):
+    """The fan fixture's geometry as one radix tree at K=8 (C=6, depth 3),
+    or 24 seeded random triangles in one cluster (K=32, C == 1), with a
+    pinhole fan of 256 rays toward it."""
+    if kind == "k8":
+        verts, faces = random_triangles(48, seed=5, extent=3.0,
+                                        tri_size=1.0)
+        K, eye = 8, [0.3, -0.2, -9.0]
+    else:
+        rng = np.random.default_rng(3)
+        verts = rng.uniform(-1, 1, (72, 3)).astype(np.float32)
+        faces = np.arange(72, dtype=np.int32).reshape(24, 3)
+        K, eye = 32, [0.0, 0.5, 4.0]
+    mesh = TriangleMesh.create(verts, faces, device="cpu")
+    bvh = build_cluster_bvh(mesh, cluster_size=K)
+    g = (np.arange(16, dtype=np.float32) + 0.5) / 16 * 2.4 - 1.2
+    gy, gx = np.meshgrid(g, g, indexing="ij")
+    center = verts.reshape(-1, 3).mean(0)
+    targets = center + np.stack([gx.ravel(), gy.ravel(), np.zeros(256)], -1)
+    o = np.tile(np.asarray([eye], np.float32), (256, 1))
+    d = (targets - o).astype(np.float32)
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    return bvh, torch.as_tensor(o), torch.as_tensor(d)
+
+
+@pytest.mark.parametrize("any_hit", [False, True])
+@pytest.mark.parametrize("kind", ["k8", "c1"])
+def test_walk_plain_matches_plain_radix(kind, any_hit):
+    """scripts/torch_coherence.py's plain walk on a radix tree (children
+    from the kids columns) and on a single-cluster tree returns
+    traverse_plain's closest-hit t and any-hit flags on every lane."""
+    bvh, o, d = _radix_case(kind)
+    assert not bvh.heap and (bvh.num_clusters == 1) == (kind == "c1")
+    assert kind == "c1" or bvh.depth > 1
+    n = o.shape[0]
+    mt = torch.full((n,), 1e30)
+    mt[::5] = -1.0
+    rays = trav._pack_rays(o, d, mt, n, n, pad_maxt=-1.0)
+    t, p, visits = walk_plain(rays, bvh.nodes, bvh.tris, bvh.num_clusters,
+                              bvh.cluster_size, any_hit, heap=False,
+                              depth=bvh.depth)
+    roots, splits = trav._default_tiles(n, n, "cpu")
+    pt, pp, _, _ = trav.traverse_plain(rays, bvh.nodes, bvh.tris,
+                                       bvh.num_clusters, bvh.cluster_size,
+                                       n, any_hit, roots, splits, heap=False)
+    assert torch.equal(p >= 0, pp >= 0)
+    if not any_hit:
+        assert torch.equal(t, pt)
+    assert int((pp >= 0).sum()) >= 16
     pairs = visits[:, 0] * bvh.num_clusters + visits[:, 1]
     assert torch.unique(pairs).numel() == pairs.numel()

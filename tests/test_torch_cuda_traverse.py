@@ -581,3 +581,80 @@ def test_coherent_k40_goes_to_binned(scene, k_bvhs, any_hit):
     ref = trav.traverse_plain(rays, bvh.nodes, bvh.tris, bvh.num_clusters,
                               40, tl, any_hit, roots, splits)
     _check(got, ref, rays, any_hit)
+
+
+# row 1e: radix trees (children from the kids columns) and C == 1, from the
+# root, on traverse_binned.cu's lane_walk: K in BINNED_K unrolled, any other
+# multiple of 8 in the run-time-K form
+RADIX_KS = (*trav.BINNED_K, 40, "c1")
+
+
+@pytest.fixture(scope="module")
+def radix_bvhs(scene):
+    """The scene's mesh as one radix tree at each K of BINNED_KS."""
+    s, _ = scene
+    with torch.inference_mode():
+        return {K: build_cluster_bvh(s.mesh, cluster_size=K)
+                for K in BINNED_KS}
+
+
+def _shadow_fan(bvh, cam_rays):
+    """Shadow rays of one point light: from a point near the top of the
+    scene box to where ``cam_rays`` (a pinhole fan) hit, max_t just short
+    of the surface, lanes whose camera ray missed dead -- a warp is a fan
+    from one point to 32 adjacent surface points."""
+    n = cam_rays.shape[0]
+    roots, splits = trav._default_tiles(n, n, cam_rays.device)
+    t, p, _, _ = trav.traverse_plain(cam_rays, bvh.nodes, bvh.tris,
+                                     bvh.num_clusters, bvh.cluster_size, n,
+                                     False, roots, splits, heap=bvh.heap)
+    hit = p >= 0
+    target = cam_rays[:, 0:3] + t[:, None] * cam_rays[:, 3:6]
+    lo, hi = bvh.nodes[0, 0:3], bvh.nodes[0, 3:6]
+    light = lo + (hi - lo) * torch.tensor([0.45, 0.9, 0.55],
+                                          device=lo.device)
+    d = target - light
+    dist = d.norm(dim=-1)
+    mt = torch.where(hit, dist * (1 - 1e-4), -1.0)
+    return trav._pack_rays(light.expand(n, 3), d / dist[:, None], mt, n, n,
+                           pad_maxt=-1.0)
+
+
+@pytest.mark.parametrize("any_hit", [False, True])
+@pytest.mark.parametrize("K", RADIX_KS)
+def test_radix_walks_match_plain(scene, radix_bvhs, cuda, K, any_hit):
+    """Radix trees against the plain version on _coherent_lanes' tiles
+    (camera-like fan, dead lanes, one cluster, lanes apart, random rays)
+    and a shadow fan from one point: coherent warps, warps whose lanes
+    point apart, and fans from one point."""
+    if K == "c1":
+        with torch.inference_mode():
+            bvh, ray = _c1_case(cuda)
+        assert bvh.num_clusters == 1
+    else:
+        _, ray = scene
+        bvh = radix_bvhs[K]
+        assert not bvh.heap and bvh.depth > 0
+    tl = trav.TILE_ROWS * 128
+    lanes, _ = _coherent_lanes(bvh, ray)
+    rays = torch.cat([lanes, _shadow_fan(bvh, lanes[:tl])])
+    C, Kc = bvh.num_clusters, bvh.cluster_size
+    entry, mode, _ = trav.launch_form(False, C, False, any_hit, 2, False, Kc)
+    assert entry == "vsnray_traverse_binned"
+    before = (trav.ENTRY_LAUNCHES[entry], trav.LAUNCHES[mode])
+    got = trav.cluster_traverse(rays, bvh.nodes, bvh.tris, C, Kc,
+                                tile_lanes=tl, any_hit=any_hit, heap=False,
+                                depth=bvh.depth)
+    assert (trav.ENTRY_LAUNCHES[entry], trav.LAUNCHES[mode]) == (
+        before[0] + 1, before[1] + 1)
+    roots, splits = trav._default_tiles(rays.shape[0], tl, rays.device)
+    ref = trav.traverse_plain(rays, bvh.nodes, bvh.tris, C, Kc, tl, any_hit,
+                              roots, splits, heap=False)
+    _check(got, ref, rays, any_hit)
+    tiles = COHERENT_TILES + 1
+    packet = _packet_warps(rays).reshape(tiles, -1)
+    assert bool(packet[0].all()) and bool(packet[-1].any())
+    assert not bool(packet[3].any())
+    live = (rays[:, 6] >= 0).reshape(tiles, tl)
+    hit = (got[1] >= 0).reshape(tiles, tl)
+    assert hit[0].any() and hit[2].all() and int(live[-1].sum()) > 100

@@ -7,8 +7,9 @@
 // pallas/traverse.py::_traverse_kernel (launched by _cluster_traverse,
 // traverse.py:514-586) for cluster_closest_hit (:722) and cluster_any_hit
 // (:1152).  The other coherent heap forms (4/8-wide descent, the
-// half-cluster skip, another K) go to traverse_binned.cu, radix trees to
-// traverse.cu.
+// half-cluster skip, another K) and radix trees go to traverse_binned.cu
+// (the packet walk below ran 7-27% slower than the one-lane walk on the
+// radix tree's bounce-0 launches, PERF.md §6).
 //
 // Contract (the plain PyTorch version in traverse.py states it): for every
 // live lane (max_t >= 0) the nearest triangle of the tree with
@@ -63,8 +64,8 @@
 // Launch: 128 threads a block, 4 * 3K float4 of static shared memory
 // (6 KB at K = 32), 64-entry stacks in local memory.
 //
-// Build: as traverse.cu (nvcc -gencode arch=compute_90a,code=sm_90a -O3
-// -std=c++17 -fmad=false -Xcompiler -fPIC -c), linked with it into one
+// Build: as traverse_binned.cu (nvcc -gencode arch=compute_90a,code=sm_90a
+// -O3 -std=c++17 -fmad=false -Xcompiler -fPIC -c), linked with it into one
 // shared library; -fmad=false keeps the triangle test bit-equal to the
 // plain version's.
 

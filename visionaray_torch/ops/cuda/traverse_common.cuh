@@ -1,6 +1,6 @@
-// Device helpers shared by the three traversal kernels: traverse.cu (radix
-// trees), traverse_binned.cu (the two-pass tiles of the treelet-binned path,
-// and every heap-tree form the coherent kernel does not take) and
+// Device helpers shared by the two traversal kernels: traverse_binned.cu
+// (the two-pass tiles of the treelet-binned path, radix trees, and every
+// heap-tree form the coherent kernel does not take) and
 // traverse_coherent.cu (coherent tiles on a heap tree).  The stack size,
 // the slab test, the sorting networks, the triangle test and the one-lane
 // while-while walk live here.
@@ -149,10 +149,10 @@ __device__ __forceinline__ bool test_record(const float4& a, const float4& b,
 
 // Records [k0, k1) of one cluster against the ray, in order, folded into
 // (bt, bp, bu, bv) with the strict t < bt.  Returns true when an any-hit
-// lane found its hit (and stops there).  traverse.cu's whole-cluster loop
-// is the same code written inline: called through this function with a
-// run-time cluster size it compiled to up to 32 more instructions and ran
-// 12-15% slower in every binary-descent mode on an H100 (same registers).
+// lane found its hit (and stops there).  A one-loop kernel with the same
+// code written inline, calling this function with a run-time cluster size
+// instead, compiled to up to 32 more instructions and ran 12-15% slower in
+// every binary-descent mode on an H100 (same registers).
 template <bool kAnyHit, bool kCount>
 __device__ __forceinline__ bool intersect_records(
     const float4* __restrict__ rec, int k0, int k1, const RayData& r,
@@ -244,18 +244,22 @@ __device__ __forceinline__ bool test_cluster(const float4* __restrict__ rec,
   }
 }
 
-// The while-while walk of one lane on a heap tree (Aila & Laine, HPG 2009),
-// from ``node``, which the lane has entered, with ``sp`` entries on its
-// stack: the lane descends inner nodes, near child first by its own slab
-// entry, until it holds a leaf or its walk is over, and only then tests the
+// The while-while walk of one lane (Aila & Laine, HPG 2009), from
+// ``node``, which the lane has entered, with ``sp`` entries on its stack:
+// the lane descends inner nodes, near child first by its own slab entry,
+// until it holds a leaf or its walk is over, and only then tests the
 // cluster, so the lanes of a warp test their clusters together and
 // reconverge after.  Popped nodes whose entry is behind the best hit are
-// skipped.  kFanout 4 or 8: the node is expanded into its descendants two
-// (three) levels down (traverse.py:393-441), a child that is already a leaf
-// kept with -1 in its empty sibling slot, the candidates ordered by the
-// reference's sorting network and pushed far to near.  kK: the cluster
-// size at compile time (records unrolled), or 0 for the run-time ``K``.
-template <bool kAnyHit, bool kCount, int kFanout, bool kHalfSkip, int kK>
+// skipped.  kHeap: the children of n are 2n+1 / 2n+2; otherwise (a radix
+// tree, binary descent) they are read from n's kids columns nodes[n, 6:8]
+// (float values, exact below 2^24).  kFanout 4 or 8 (heap trees): the node is
+// expanded into its descendants two (three) levels down
+// (traverse.py:393-441), a child that is already a leaf kept with -1 in its
+// empty sibling slot, the candidates ordered by the reference's sorting
+// network and pushed far to near.  kK: the cluster size at compile time
+// (records unrolled), or 0 for the run-time ``K``.
+template <bool kAnyHit, bool kCount, int kFanout, bool kHalfSkip, int kK,
+          bool kHeap = true>
 __device__ __forceinline__ void lane_walk(
     const float* __restrict__ nodes, const float4* __restrict__ tris,
     int leaf_base, int K, const RayData& r, int node,
@@ -266,6 +270,8 @@ __device__ __forceinline__ void lane_walk(
   static_assert(kK == 0 || kK == 8 || kK == 16 || kK == 32,
                 "K is 8, 16, 32 or 0 (run time)");
   static_assert(!kHalfSkip || kK == 0 || kK >= 16, "half boxes need K >= 16");
+  static_assert(kHeap || (kFanout == 2 && !kHalfSkip),
+                "a radix tree descends 2 wide, without the half skip");
   auto pop = [&]() -> bool {
     while (sp > 0) {
       --sp;
@@ -282,7 +288,13 @@ __device__ __forceinline__ void lane_walk(
     while (node < leaf_base) {
       bool descended = false;
       if constexpr (kFanout == 2) {
-        const int left = 2 * node + 1, right = 2 * node + 2;
+        int left = 2 * node + 1, right = 2 * node + 2;
+        if constexpr (!kHeap) {
+          const float2 kids =
+              __ldg(reinterpret_cast<const float2*>(nodes + 8 * node + 6));
+          left = static_cast<int>(kids.x);
+          right = static_cast<int>(kids.y);
+        }
         const float tl = slab_entry(nodes, left, r, bt);
         const float tr = slab_entry(nodes, right, r, bt);
         if (kCount) n_box += 2;

@@ -7,10 +7,10 @@ Every traversal of the path tracer goes through ``cluster_traverse``:
   ``LAUNCHES[mode]`` and to ``ENTRY_LAUNCHES[entry point]``:
   ``traverse_coherent.cu`` for coherent tiles on a heap tree (binary
   descent, no half skip, K in BINNED_K), ``traverse_binned.cu`` for the
-  two-pass tiles of the binned path and every other heap-tree form,
-  ``traverse.cu`` for radix trees; all built with nvcc at first use into
-  one library under ``build/visionaray_torch/<source hash>/``, loaded with
-  ctypes (``launch_form`` picks the entry point);
+  two-pass tiles of the binned path, radix trees and every other
+  heap-tree form; both built with nvcc at first use into one library
+  under ``build/visionaray_torch/<source hash>/``, loaded with ctypes
+  (``launch_form`` picks the entry point);
 - on CPU tensors it runs ``traverse_plain``, a brute-force Moeller-Trumbore
   of each lane against every cluster under its start node.  It does not
   depend on traversal order, so it is an independent oracle for the kernel.
@@ -69,9 +69,9 @@ TILE_ROWS = 32       # coherent path: tile = TILE_ROWS * 128 lanes
 INTERLEAVE = 2       # tiles per TPU grid step; fixes the padding granule
 STACK_DEPTH = 64     # the kernels' stack entries; see stack_need
 FANOUTS = (2, 4, 8)  # descent widths of the kernel (JAX _SORT_NET keys)
-# the cluster sizes whose record loop the heap-tree kernels unroll at
-# compile time; traverse_binned.cu takes any other multiple of 8 through one
-# run-time-K form, traverse_coherent.cu only these
+# the cluster sizes whose record loop the kernels unroll at compile time;
+# traverse_binned.cu takes any other multiple of 8 through one run-time-K
+# form, traverse_coherent.cu only these
 BINNED_K = (8, 16, 32)
 _INV_CLAMP = 1e18    # 1/d is clamped to +-1e18
 BIN_M = 6            # treelet slots per ray on the binned closest path
@@ -95,11 +95,11 @@ LAUNCHES = {"closest": 0, "any": 0, "binned_closest": 0, "binned_any": 0,
 # form of the kernel each launch ran.
 VARIANT_LAUNCHES: dict = {}
 # Kernel launches per C entry point: which kernel each mode ran.
-ENTRY_LAUNCHES = {"vsnray_traverse": 0, "vsnray_traverse_binned": 0,
+ENTRY_LAUNCHES = {"vsnray_traverse_binned": 0,
                   "vsnray_traverse_coherent": 0}
 
 _CUDA_DIR = Path(__file__).resolve().parent / "cuda"
-SOURCES = (_CUDA_DIR / "traverse.cu", _CUDA_DIR / "traverse_binned.cu",
+SOURCES = (_CUDA_DIR / "traverse_binned.cu",
            _CUDA_DIR / "traverse_coherent.cu")
 _BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / \
     "visionaray_torch"
@@ -177,8 +177,7 @@ def bind_library(lib_path) -> ctypes.CDLL:
     # pointers (rays, nodes, tris[, roots, splits], 4 outputs, counters),
     # ints, the stream
     for entry, argtypes in (
-            ("vsnray_traverse", [p] * 10 + [i] * 6 + [p]),
-            ("vsnray_traverse_binned", [p] * 10 + [i] * 8 + [p]),
+            ("vsnray_traverse_binned", [p] * 10 + [i] * 9 + [p]),
             ("vsnray_traverse_coherent", [p] * 8 + [i] * 4 + [p])):
         fn = getattr(lib, entry)
         fn.argtypes = argtypes
@@ -294,16 +293,13 @@ def launch_form(heap: bool, num_clusters: int, two_pass: bool,
                 any_hit: bool, fanout: int, half_skip: bool,
                 cluster_size: int):
     """(C entry point, LAUNCHES key, VARIANT_LAUNCHES key) of one launch:
-    radix trees go to traverse.cu; coherent tiles on a heap tree at binary
-    descent, without the half skip and with K in BINNED_K to
-    traverse_coherent.cu; every other heap-tree launch (two-pass tiles, and
-    the other coherent forms, whose tiles all start at root 0) to
-    traverse_binned.cu."""
+    coherent tiles on a heap tree at binary descent, without the half skip
+    and with K in BINNED_K go to traverse_coherent.cu; every other launch
+    (two-pass tiles, radix trees and C == 1, and the other coherent heap
+    forms, whose tiles all start at node 0) to traverse_binned.cu."""
     mode = launch_mode(heap, num_clusters, two_pass, any_hit)
-    if not heap:
-        entry = "vsnray_traverse"
-    elif (not two_pass and fanout == 2 and not half_skip
-          and cluster_size in BINNED_K):
+    if (heap and not two_pass and fanout == 2 and not half_skip
+            and cluster_size in BINNED_K):
         entry = "vsnray_traverse_coherent"
     else:
         entry = "vsnray_traverse_binned"
@@ -372,9 +368,8 @@ def cluster_traverse(rays, nodes, tris, num_clusters: int, cluster_size: int,
         args = [rays.data_ptr(), nodes.data_ptr(), tris.data_ptr(),
                 tile_roots.data_ptr(), tile_splits.data_ptr(), *outs_cnt,
                 npad, npad // tile_lanes, tile_lanes, num_clusters,
-                cluster_size, int(any_hit)]
-        if entry == "vsnray_traverse_binned":
-            args += [fanout, int(half_skip)]
+                cluster_size, int(any_hit), fanout, int(half_skip),
+                int(heap)]
     with torch.cuda.device(rays.device):
         stream = torch.cuda.current_stream(rays.device).cuda_stream
         err = getattr(lib, entry)(*args, stream)

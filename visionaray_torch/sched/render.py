@@ -1,4 +1,5 @@
-"""Frame rendering front end (port of sched/render.py, path tracing only).
+"""Frame rendering front end (port of sched/render.py: the simple and the
+path-tracing kernels).
 
 Images are (H, W, 4) with row 0 the bottom scanline.  A render runs under
 torch.inference_mode() unless autograd is on and a tensor of the scene, the
@@ -17,8 +18,13 @@ import torch
 
 from visionaray_torch.kernels.params import KernelParams
 from visionaray_torch.kernels.pathtracing import pathtracing_kernel
+from visionaray_torch.kernels.simple import simple_kernel
 from visionaray_torch.ops.sampling import Sampler, as_u32, pcg_hash
 from visionaray_torch.shading.lights import light_groups
+
+KERNELS = {"simple": simple_kernel, "pathtracing": pathtracing_kernel}
+# the reference's other kernels, not ported yet (ROADMAP queue 1, item 1)
+UNPORTED = ("whitted", "ao", "volume")
 
 SSAA_OFFSETS = {
     1: [(0.0, 0.0)],
@@ -77,10 +83,21 @@ def _grad_scope(scene, cam, params=None):
 
 
 def _check_algo(algo: str):
-    if algo != "pathtracing":
+    if algo not in KERNELS:
         raise NotImplementedError(
-            f"algo={algo!r}: only 'pathtracing' is ported (ROADMAP queue 1, "
-            "item 8)")
+            f"algo={algo!r}: only 'simple' and 'pathtracing' are ported "
+            f"({', '.join(UNPORTED)}: ROADMAP queue 1, item 1)")
+
+
+def algo_defaults(algo: str):
+    """(bounces, ambient, pixel sampler) that ``render`` picks for ``algo``
+    when the caller gives none (the reference's viewer defaults): 10
+    bounces and ambient 1 for path tracing, else 4 and 0; the progressive
+    jittered_blend sampler for path tracing and AO, else uniform."""
+    pt = algo == "pathtracing"
+    return (10 if pt else 4,
+            (1.0, 1.0, 1.0, 1.0) if pt else (0.0, 0.0, 0.0, 0.0),
+            "jittered_blend" if algo in ("pathtracing", "ao") else "uniform")
 
 
 def render_pixels(params: KernelParams, cam, x, y, width, height,
@@ -88,6 +105,7 @@ def render_pixels(params: KernelParams, cam, x, y, width, height,
                   frame_num, seed: int = 0, nee: bool = False):
     """Render a flat batch of pixels; returns (color (N, 4), depth (N,))."""
     _check_algo(algo)
+    kernel = KERNELS[algo]
     with _grad_scope(params.scene, cam, params):
         pixel_id = (as_u32(y) * (width & 0xFFFFFFFF) + as_u32(x)) & 0xFFFFFFFF
         ssaa = torch.tensor(_ssaa_offsets(spp), dtype=torch.float32,
@@ -108,7 +126,10 @@ def render_pixels(params: KernelParams, cam, x, y, width, height,
             else:
                 jitter = None
             ray = cam.primary_rays(x, y, width, height, jitter)
-            rec = pathtracing_kernel(params, ray, samp, nee=nee)
+            if algo == "pathtracing":
+                rec = kernel(params, ray, samp, nee=nee)
+            else:
+                rec = kernel(params, ray, samp)
             color = color + rec.color
             depth = depth + torch.where(rec.hit, rec.depth, 0.0)
         return color / spp, depth / spp
@@ -133,7 +154,7 @@ def _render_frame(params: KernelParams, cam, width: int, height: int,
     return color.reshape(height, width, 4), depth.reshape(height, width)
 
 
-def render(scene, cam, width: int, height: int, algo: str = "pathtracing",
+def render(scene, cam, width: int, height: int, algo: str = "simple",
            spp: int = 1, bounces: Optional[int] = None,
            epsilon: Optional[float] = None, bg_color=(0.1, 0.4, 1.0, 1.0),
            ambient: Optional[tuple] = None, pixel_sampler: Optional[str] = None,
@@ -143,8 +164,9 @@ def render(scene, cam, width: int, height: int, algo: str = "pathtracing",
     """Render one frame on the scene's device; returns a RenderTarget
     (pass ``rt`` for the progressive blend, alpha = 1/frame_num).
 
-    Defaults as in the JAX package: 10 bounces, ambient 1, jittered_blend,
-    epsilon = max(1e-3, 1e-5 * scene diagonal).  Other algorithms,
+    Defaults as in the JAX package: the simple kernel; bounces, ambient
+    and pixel sampler by algorithm (``algo_defaults``); epsilon =
+    max(1e-3, 1e-5 * scene diagonal).  The Whitted, AO and volume kernels,
     ``spectral``, ``boundary`` and typed render targets are not ported.
     """
     _check_algo(algo)
@@ -153,12 +175,10 @@ def render(scene, cam, width: int, height: int, algo: str = "pathtracing",
                                   "ported yet")
     if rt is not None and not isinstance(rt, RenderTarget):
         raise NotImplementedError("only the float RenderTarget is ported")
-    if bounces is None:
-        bounces = 10
-    if ambient is None:
-        ambient = (1.0, 1.0, 1.0, 1.0)
-    if pixel_sampler is None:
-        pixel_sampler = "jittered_blend"
+    d_bounces, d_ambient, d_sampler = algo_defaults(algo)
+    bounces = d_bounces if bounces is None else bounces
+    ambient = d_ambient if ambient is None else ambient
+    pixel_sampler = d_sampler if pixel_sampler is None else pixel_sampler
     with _grad_scope(scene, cam):
         if epsilon is None:
             bbox = scene.bbox()

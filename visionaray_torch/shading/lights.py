@@ -147,6 +147,12 @@ class AreaLights:
     def num_lights(self):
         return self.v1.shape[0]
 
+    @property
+    def position(self):
+        """Centroids, so that the kernels that treat every light as a point
+        light (simple) can loop over area lights too."""
+        return self.v1 + (self.e1 + self.e2) / 3.0
+
     def normal(self, light_idx):
         return normalize(cross(self.e1[light_idx], self.e2[light_idx]))
 

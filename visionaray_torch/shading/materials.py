@@ -127,6 +127,14 @@ class Materials:
                             for f in dataclasses.fields(self)})
 
     # --------------------------------------------------------------- interface
+    def ambient(self):
+        """Per-type ambient term: ca * ka for matte and plastic, 0 for the
+        other types."""
+        amb = self.ca * self.ka[..., None]
+        is_amb = (self.mtype == MaterialType.MATTE) | \
+                 (self.mtype == MaterialType.PLASTIC)
+        return torch.where(is_amb[..., None], amb, torch.zeros_like(amb))
+
     def shade(self, n, view_dir, light_dir, light_intensity):
         """Direct-lighting shade per material type (matte, plastic: pi*f*I*
         max(0, n.l); mirror: 0; emissive: ce*ls)."""
