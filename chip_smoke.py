@@ -63,6 +63,32 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    dir_bits=3; each finite, not constant, with every expected mode
    launched, and its coherent modes held against the plain version on
    captured launches as in phase 2.
+10. The Whitted frame on phase 7a's radix tree: render(scene, cam, 1920,
+    1080, algo="whitted") with defaults only (4 bounces, one point light),
+    timed as phase 3 (whitted_frame_s): 5 radix_closest and 4 radix_any
+    launches, the image finite and mostly hit, both modes held against the
+    plain version on captured launches as in phase 2.
+11. The AO frame, the same for algo="ao" (ao_frame_s), each frame blended
+    into the last one's RenderTarget (the counted frame: frame_num=2): 1
+    radix_closest and 8 radix_any launches.
+12. The boundary step on the radix tree: build_edge_adjacency of the mesh
+    (timed, once), then the vertex gradient of the mean RGB of
+    render(..., algo="simple", boundary=adj), timed as phase 5
+    (boundary_step_s) with its peak memory and increment, the edge and
+    silhouette counts: 3 radix_closest launches (primary, f-, f+) held
+    against the plain version; the gradient finite and unlike the step's
+    with boundary=None; the boundary image exactly 0.  At 32x32 on phase
+    6's configuration the gradient through the kernel is held to the plain
+    version's with phase 6's limits.
+13. The simple frame through a hit filter rejecting every prim whose id is
+    0 mod 7 (filtered_frame_s; its launches are its re-traces, at most
+    16), its launches against the plain version; on the primary rays no
+    accepted prim is one the filter rejects, and where the unfiltered
+    winner is accepted the prim is the same and t bit-equal.  Then
+    multi_hit(primary rays, k=16) (multi_hit_s, 16 launches): t sorted
+    along k, slot 0 the closest hit, every slot's hit and prim against the
+    plain version on COMPARE_LANES lanes, the launches against the plain
+    version.
 
 Output: one line per check, then a JSON line with per-kernel numbers, the
 card's name and power limit, and as the last line
@@ -70,9 +96,10 @@ card's name and power limit, and as the last line
 
     python3 chip_smoke.py --profile [--profile-table=PATH]
 
-adds a torch.profiler breakdown of one more frame and one more training
-step: device time by kernel group and the device idle share, and with
-PATH the full operator tables (the step's in PATH.step).
+adds a torch.profiler breakdown of one more frame, radix frame, training
+step, Whitted frame, AO frame and boundary step: device time by kernel
+group and the device idle share, and with PATH the full operator tables
+(the step's in PATH.step).
 """
 
 from __future__ import annotations
@@ -91,9 +118,13 @@ import torch
 import visionaray_torch.ops.traverse as trav
 from visionaray_torch.core.camera import Pinhole
 from visionaray_torch.core.scene import Scene, TriangleMesh
+from visionaray_torch.core.types import Ray
+from visionaray_torch.diff.boundary import (
+    boundary_image, build_edge_adjacency, silhouette_mask,
+)
 from visionaray_torch.kernels.params import KernelParams
 from visionaray_torch.ops.cluster_bvh import build_cluster_bvh
-from visionaray_torch.ops.trace import TraceConfig
+from visionaray_torch.ops.trace import TraceConfig, closest_hit, multi_hit
 from visionaray_torch.sched import step
 from visionaray_torch.sched.render import _pixel_grid, render, render_pixels
 from visionaray_torch.scenes.sponza_like import sponza_like_scene
@@ -149,6 +180,16 @@ SWITCHES = {
         TraceConfig(shadow_reversed=False, shadow_m=6, dir_bits=3),
         ("closest", "any", "binned_closest", "binned_any")),
 }
+
+# phases 10-11: the kernels' launches a frame, by mode
+ALGO_LAUNCHES = {"whitted": {"radix_closest": 5, "radix_any": 4},
+                 "ao": {"radix_closest": 1, "radix_any": 8}}
+MULTI_HIT_K = 16
+
+
+def reject_mod7(pid, t, u, v, hit):
+    """Phase 13's hit filter: rejects every prim whose id is 0 mod 7."""
+    return hit & (pid % 7 != 0)
 
 
 def log(*a):
@@ -791,6 +832,233 @@ def switch_phase(name, cfg, expect, params, cam, x, y, ref_color,
                     image_share_over_tol_vs_default=share)
 
 
+def algo_phase(rscene, cam, algo, check_modes):
+    """Phases 10-11: render(scene on the radix tree, cam, 1920, 1080,
+    algo=algo) with defaults only, timed as phase 3; AO frames blend into
+    the previous frame's RenderTarget."""
+    state = {}
+
+    def frame(num):
+        rt = render(rscene, cam, WIDTH, HEIGHT, algo=algo, frame_num=num,
+                    rt=state.get("rt") if algo == "ao" else None)
+        state["rt"] = rt
+        return rt.color.reshape(-1, 4), rt.depth.reshape(-1)
+
+    rec, launches, warm_s, times, color, depth = timed_frames(frame)
+    frame_s = sum(times) / len(times)
+    expect = ALGO_LAUNCHES[algo]
+    finite = bool(torch.isfinite(color).all())
+    std = float(color[:, :3].std())
+    hit = float((depth > 0).float().mean())
+    ok = (finite and std > 0 and hit > 0.5
+          and all(launches[k] == n for k, n in expect.items())
+          and sum(launches.values()) == sum(expect.values()))
+    log(f"{algo} frame 1920x1080 render() defaults on the radix tree: "
+        f"{algo}_frame_s={frame_s:.4f} (frames "
+        f"{', '.join(f'{t:.4f}' for t in times)}) warm_s={warm_s:.3f} "
+        f"launches={launches} (expected {expect}) entry_launches="
+        f"{rec.entries} hit_fraction={hit:.4f} image_mean="
+        f"{float(color[:, :3].mean()):.6f} image_std={std:.6f} "
+        f"finite={finite} {'OK' if ok else 'FAIL'}")
+    ok &= check_modes([(k, f"traverse_{k}_{algo}", "1e") for k in expect],
+                      rec, rscene.bvh, launches)
+    return ok, dict(frame_s=frame_s, frame_times=times, warm_s=warm_s,
+                    launches=launches)
+
+
+def _boundary_grad(scene, cam, width, height, adj):
+    """(loss, vertex gradient) of the mean RGB of render(..., "simple",
+    boundary=adj); ``adj=None``: no boundary term."""
+    v = scene.mesh.vertices.detach().requires_grad_()
+    s2 = dataclasses.replace(
+        scene, mesh=dataclasses.replace(scene.mesh, vertices=v))
+    with torch.enable_grad():
+        rt = render(s2, cam, width, height, algo="simple", boundary=adj)
+        loss = rt.color[..., :3].mean()
+        (g,) = torch.autograd.grad(loss, v)
+    return loss.detach(), g
+
+
+def boundary_phase(rscene, cam, check_modes, dev):
+    """Phase 12: the boundary step at full width on the radix tree, and
+    its gradient check at 32x32 on phase 6's configuration."""
+    mesh = rscene.mesh
+    t0 = time.perf_counter()
+    adj = build_edge_adjacency(mesh.faces.cpu().numpy(),
+                               mesh.vertices.cpu().numpy(), device=dev)
+    torch.cuda.synchronize()
+    adj_s = time.perf_counter() - t0
+    E = adj.edges.shape[0]
+    with torch.no_grad():
+        n_sil = int(silhouette_mask(mesh.vertices, mesh.faces, adj, cam.eye,
+                                    geom_ids=mesh.geom_ids).sum())
+
+    rec = LaunchRecorder(trav.cluster_traverse)
+    with recorded(rec):
+        t0 = time.perf_counter()
+        _boundary_grad(rscene, cam, WIDTH, HEIGHT, adj)
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t0
+    base_mem = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    trav.reset_launch_counts()
+    t0 = time.perf_counter()
+    loss, g = _boundary_grad(rscene, cam, WIDTH, HEIGHT, adj)
+    torch.cuda.synchronize()
+    counted_s = time.perf_counter() - t0
+    launches = dict(trav.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    times = []
+    for _ in range(TIMED_STEPS):
+        t0 = time.perf_counter()
+        _boundary_grad(rscene, cam, WIDTH, HEIGHT, adj)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    step_s = sum(times) / len(times)
+
+    loss_nb, g_nb = _boundary_grad(rscene, cam, WIDTH, HEIGHT, None)
+    v = mesh.vertices.detach().requires_grad_()
+    with torch.enable_grad():
+        bimg = boundary_image(
+            KernelParams.create(dataclasses.replace(
+                rscene, mesh=dataclasses.replace(mesh, vertices=v))),
+            cam, WIDTH, HEIGHT, adj)
+    zero = float(bimg.detach().abs().max()) == 0.0
+    finite = bool(torch.isfinite(g).all())
+    differs = not torch.equal(g, g_nb)
+    ok = (finite and differs and zero and float(loss) == float(loss_nb)
+          and launches.get("radix_closest", 0) == 3
+          and sum(launches.values()) == 3)
+    log(f"boundary step 1920x1080 render(simple, boundary=adj) on the radix "
+        f"tree: boundary_step_s={step_s:.4f} (steps "
+        f"{', '.join(f'{t:.4f}' for t in times)}) counted_s={counted_s:.4f} "
+        f"warm_s={warm_s:.3f} adjacency_s={adj_s:.3f} edges={E} "
+        f"silhouette_edges={n_sil} peak_mem_bytes={peak} "
+        f"step_mem_bytes={peak - base_mem} launches={launches} "
+        f"loss={float(loss):.7f} |g|={float(g.norm()):.6e} "
+        f"|g without boundary|={float(g_nb.norm()):.6e} "
+        f"|g - g without|={float((g - g_nb).norm()):.6e} finite={finite} "
+        f"differs={differs} boundary_image_zero={zero} "
+        f"{'OK' if ok else 'FAIL'}")
+    ok &= check_modes([("radix_closest", "traverse_radix_closest_boundary",
+                        "1e")], rec, rscene.bvh, launches)
+
+    # kernel vs plain gradients at 32x32, phase 6's configuration
+    params, scam = small_config(dev)
+    sadj = build_edge_adjacency(params.scene.mesh.faces.cpu().numpy(),
+                                params.scene.mesh.vertices.cpu().numpy(),
+                                device=dev)
+    _, gk = _boundary_grad(params.scene, scam, 32, 32, sadj)
+    with plain_traversal():
+        _, gp = _boundary_grad(params.scene, scam, 32, 32, sadj)
+    rel, cos = grad_stats(gk, gp)
+    good = (rel <= GRAD_REL_L2 and cos >= GRAD_COS
+            and bool(torch.isfinite(gk).all()) and float(gp.norm()) > 0)
+    log(f"boundary gradient check 32x32 kernel vs plain: g_verts "
+        f"rel_l2={rel:.3e} cos={cos:.9f} |g|={float(gp.norm()):.6e} "
+        f"{'OK' if good else 'FAIL'}")
+    return ok and good, dict(
+        boundary_step_s=step_s, step_times=times, counted_s=counted_s,
+        adjacency_s=adj_s, edges=E, silhouette_edges=n_sil,
+        peak_mem_bytes=peak, step_mem_bytes=peak - base_mem,
+        launches=launches, grad_check_rel_l2=rel, grad_check_cos=cos)
+
+
+def filter_phase(rscene, cam, check_modes, dev):
+    """Phase 13: the filtered simple frame and multi_hit on the primary
+    rays of the radix tree."""
+    def frame(num):
+        rt = render(rscene, cam, WIDTH, HEIGHT, hit_filter=reject_mod7)
+        return rt.color.reshape(-1, 4), rt.depth.reshape(-1)
+
+    rec, launches, warm_s, times, color, depth = timed_frames(frame)
+    filtered_s = sum(times) / len(times)
+    n = launches.get("radix_closest", 0)
+    finite = bool(torch.isfinite(color).all())
+    hit_frac = float((depth > 0).float().mean())
+    ok = (finite and hit_frac > 0.5 and 1 <= n <= 16
+          and sum(launches.values()) == n)
+
+    x, y = _pixel_grid(WIDTH, HEIGHT, dev)
+    ray = cam.primary_rays(x, y, WIDTH, HEIGHT)
+    ref = closest_hit(ray, rscene)
+    got = closest_hit(ray, rscene, hit_filter=reject_mod7)
+    kept_rejected = int((got.hit & (got.prim_id % 7 == 0)).sum())
+    acc = ref.hit & (ref.prim_id % 7 != 0)
+    fell = ref.hit & ~acc
+    same = (bool(got.hit[acc].all())
+            and torch.equal(got.prim_id[acc], ref.prim_id[acc])
+            and torch.equal(got.t[acc], ref.t[acc]))
+    behind = bool((got.t[fell] > ref.t[fell]).all())
+    ok &= kept_rejected == 0 and same and behind
+    log(f"filtered frame 1920x1080 render(hit_filter=prim % 7 != 0) on the "
+        f"radix tree: filtered_frame_s={filtered_s:.4f} (frames "
+        f"{', '.join(f'{t:.4f}' for t in times)}) warm_s={warm_s:.3f} "
+        f"launches (1 + re-traces)={launches} hit_fraction={hit_frac:.4f} "
+        f"| primary rays: unfiltered winners rejected={int(fell.sum())} "
+        f"accepted={int(acc.sum())} accepted prims the filter rejects="
+        f"{kept_rejected} accepted winners same prim and t bit-equal={same} "
+        f"fell-through hits behind the rejected={behind} "
+        f"{'OK' if ok else 'FAIL'}")
+    ok &= check_modes([("radix_closest", "traverse_radix_closest_filtered",
+                        "1e")], rec, rscene.bvh, launches)
+
+    # multi_hit on the primary rays
+    mrec = LaunchRecorder(trav.cluster_traverse)
+    with recorded(mrec):
+        multi_hit(ray, rscene, k=MULTI_HIT_K)
+        torch.cuda.synchronize()
+    trav.reset_launch_counts()
+    mtimes = []
+    for i in range(TIMED_FRAMES):
+        t0 = time.perf_counter()
+        mh = multi_hit(ray, rscene, k=MULTI_HIT_K)
+        torch.cuda.synchronize()
+        mtimes.append(time.perf_counter() - t0)
+        if i == 0:
+            mlaunches = dict(trav.LAUNCHES)
+    mh_s = sum(mtimes) / len(mtimes)
+    sorted_k = bool((mh.t[:, 1:] >= mh.t[:, :-1]).all())
+    h0 = mh.hit[:, 0]
+    slot0 = (torch.equal(h0, ref.hit)
+             and torch.equal(mh.prim_id[h0, 0], ref.prim_id[h0]))
+    rel0 = float(((mh.t[h0, 0] - ref.t[h0]).abs()
+                  / ref.t[h0].abs().clamp_min(1e-30)).max())
+    depth_hist = torch.bincount(mh.hit.sum(1), minlength=MULTI_HIT_K + 1)
+    # every slot against the plain version on a subset of lanes
+    mid = x.shape[0] // 2
+    sub = Ray(ori=ray.ori[mid:mid + COMPARE_LANES],
+              dir=ray.dir[mid:mid + COMPARE_LANES])
+    km = multi_hit(sub, rscene, k=MULTI_HIT_K)
+    with plain_traversal():
+        pm = multi_hit(sub, rscene, k=MULTI_HIT_K)
+    torch.cuda.synchronize()
+    hit_mm = int((km.hit != pm.hit).sum())
+    both = km.hit & pm.hit
+    prim_mm = int((both & (km.prim_id != pm.prim_id) & (km.t != pm.t)).sum())
+    live = int(pm.hit.sum())
+    good = (sorted_k and slot0 and rel0 <= T_RTOL
+            and mlaunches.get("radix_closest", 0) == MULTI_HIT_K
+            and sum(mlaunches.values()) == MULTI_HIT_K
+            and hit_mm + prim_mm <= MISMATCH_SHARE * max(live, 1) + 1
+            and live > COMPARE_LANES)
+    log(f"multi_hit 1920x1080 primary rays k={MULTI_HIT_K} on the radix "
+        f"tree: multi_hit_s={mh_s:.4f} (calls "
+        f"{', '.join(f'{t:.4f}' for t in mtimes)}) launches={mlaunches} "
+        f"t sorted along k={sorted_k} slot 0 = closest hit={slot0} "
+        f"max_rel_t_slot0={rel0:.3e} lanes by hits found="
+        f"{depth_hist.tolist()} | {COMPARE_LANES} lanes vs plain: "
+        f"hits={live} hit_mismatch={hit_mm} prim_mismatch_unique={prim_mm} "
+        f"{'OK' if good else 'FAIL'}")
+    good &= check_modes([("radix_closest",
+                          "traverse_radix_closest_multi_hit", "1e")],
+                        mrec, rscene.bvh, mlaunches)
+    return ok and good, dict(
+        filtered_frame_s=filtered_s, filtered_frame_times=times,
+        filtered_launches=launches, multi_hit_s=mh_s,
+        multi_hit_times=mtimes, multi_hit_launches=mlaunches)
+
+
 def profile_run(run, label, table_path=None):
     """``--profile``: torch.profiler over one ``run()`` (a frame or a
     training step); prints the device busy share and the top kernels by
@@ -1065,6 +1333,25 @@ def main() -> int:
                 e["launches_training_step"] = 0
             all_ok &= good
 
+    # ---- phases 10-13: render's other paths on phase 7a's radix tree
+    rscene = dataclasses.replace(scene, bvh=rbvh)
+    slice7 = {}
+    first = len(entries)
+    with torch.no_grad():
+        for algo in ("whitted", "ao"):
+            good, slice7[f"{algo}_frame"] = algo_phase(rscene, cam, algo,
+                                                       check_modes)
+            all_ok &= good
+    good, slice7["boundary_step"] = boundary_phase(rscene, cam, check_modes,
+                                                   dev)
+    all_ok &= good
+    with torch.no_grad():
+        good, slice7["filter_multi_hit"] = filter_phase(rscene, cam,
+                                                        check_modes, dev)
+    all_ok &= good
+    for e in entries[first:]:
+        e["launches_training_step"] = 0
+
     if "--profile" in sys.argv[1:]:
         table = [a.split("=", 1)[1] for a in sys.argv[1:]
                  if a.startswith("--profile-table=")]
@@ -1076,6 +1363,15 @@ def main() -> int:
             params.scene.mesh.vertices, params.scene.materials.cd,
             TIMED_STEPS + 3, params, cam, x, y, nee=True), "training step",
             table[0] + ".step" if table else None)
+        with torch.no_grad():
+            for algo in ("whitted", "ao"):
+                profile_run(lambda: render(rscene, cam, WIDTH, HEIGHT,
+                                           algo=algo), f"{algo} frame")
+        adj = build_edge_adjacency(rscene.mesh.faces.cpu().numpy(),
+                                   rscene.mesh.vertices.cpu().numpy(),
+                                   device=dev)
+        profile_run(lambda: _boundary_grad(rscene, cam, WIDTH, HEIGHT, adj),
+                    "boundary step")
 
     log(json.dumps({"kernels": entries, "frame_s": frame_s,
                     "entry_launches": rec_entries,
@@ -1086,7 +1382,7 @@ def main() -> int:
                     "radix_entry_launches": rentries, **simple,
                     "radix_bvh_build_s": rbuild_s,
                     "frames_1f": frames_1f, "training_step_1f": step_1f,
-                    "switch_frames": switch_frames,
+                    "switch_frames": switch_frames, **slice7,
                     "build_s": info["seconds"]}))
     log(f"card: {smi}")
     if not all_ok:

@@ -139,10 +139,12 @@ def test_render_front_end_matches_jax(nee):
 def test_unported_options_raise():
     ts, tcam = sponza_like_scene(target_tris=4000, device=CPU)
     with pytest.raises(NotImplementedError, match="pathtracing"):
-        trender.render(ts, tcam, 4, 4, algo="whitted")
+        trender.render(ts, tcam, 4, 4, algo="volume")
     with pytest.raises(NotImplementedError):
         trender.render(ts, tcam, 4, 4, spectral=8)
-    with pytest.raises(NotImplementedError, match="hit filters"):
-        trender.render(ts, tcam, 4, 4, hit_filter=lambda *a: a[-1])
+    with pytest.raises(NotImplementedError, match="LBVH"):
+        trender.render(dataclasses.replace(ts, bvh=object()), tcam, 4, 4)
+    with pytest.raises(NotImplementedError, match="RenderTarget"):
+        trender.render(ts, tcam, 4, 4, rt=object())
     assert trender._ssaa_offsets(4) == jrender._ssaa_offsets(4)
     assert trender._ssaa_offsets(3) == jrender._ssaa_offsets(3)

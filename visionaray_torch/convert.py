@@ -15,9 +15,10 @@ import dataclasses
 import numpy as np
 import torch
 
-from visionaray_torch.core.camera import Pinhole
+from visionaray_torch.core.camera import MatrixCamera, Pinhole
 from visionaray_torch.core.scene import Planes, Scene, Spheres, TriangleMesh
 from visionaray_torch.device import resolve_device
+from visionaray_torch.diff.boundary import EdgeAdjacency
 from visionaray_torch.ops.cluster_bvh import ClusterBVH
 from visionaray_torch.ops.lbvh import tree_depth
 from visionaray_torch.shading.lights import AreaLights, PointLights, SpotLights
@@ -68,6 +69,14 @@ def lights_from_arrays(kind: str, d: dict, device="cuda"):
 
 def pinhole_from_arrays(d: dict, device="cuda") -> Pinhole:
     return _build(Pinhole, d, resolve_device(device))
+
+
+def matrix_camera_from_arrays(d: dict, device="cuda") -> MatrixCamera:
+    return _build(MatrixCamera, d, resolve_device(device))
+
+
+def edge_adjacency_from_arrays(d: dict, device="cuda") -> EdgeAdjacency:
+    return _build(EdgeAdjacency, d, resolve_device(device))
 
 
 def cluster_bvh_from_arrays(d: dict, device="cuda") -> ClusterBVH:

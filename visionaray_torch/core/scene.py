@@ -82,6 +82,15 @@ class Spheres:
     radius: Any    # (S,)
     geom_ids: Any  # (S,) i32
 
+    @staticmethod
+    def create(center, radius, geom_ids=None, device="cuda") -> "Spheres":
+        dev = resolve_device(device)
+        center = _f32(center, dev).reshape(-1, 3)
+        radius = _f32(radius, dev).reshape(-1)
+        geom_ids = (torch.zeros(radius.shape, dtype=torch.int32, device=dev)
+                    if geom_ids is None else _i32(geom_ids, dev))
+        return Spheres(center, radius, geom_ids)
+
     @property
     def num_prims(self):
         return self.radius.shape[0]
@@ -94,6 +103,15 @@ class Planes:
     normal: Any    # (P, 3)
     offset: Any    # (P,)
     geom_ids: Any  # (P,) i32
+
+    @staticmethod
+    def create(normal, offset, geom_ids=None, device="cuda") -> "Planes":
+        dev = resolve_device(device)
+        normal = _f32(normal, dev).reshape(-1, 3)
+        offset = _f32(offset, dev).reshape(-1)
+        geom_ids = (torch.zeros(offset.shape, dtype=torch.int32, device=dev)
+                    if geom_ids is None else _i32(geom_ids, dev))
+        return Planes(normal, offset, geom_ids)
 
     @property
     def num_prims(self):

@@ -11,6 +11,8 @@ from typing import Any
 
 import torch
 
+from visionaray_torch.device import resolve_device
+
 # numeric_limits<float>::max(), the "no hit yet" distance, written as the
 # exact f32 value (torch refuses to narrow the decimal 3.4028235e38)
 FLT_MAX = 3.4028234663852886e38
@@ -54,6 +56,9 @@ class HitRecord:
             v=torch.zeros(bs, dtype=torch.float32, device=device),
         )
 
+    def isect_pos(self, ray: Ray):
+        return ray.at(self.t)
+
 
 def is_closer(query: HitRecord, reference_t, max_t=None):
     """query.hit && query.t >= 0 && query.t < reference_t [&& t < max_t]."""
@@ -89,5 +94,25 @@ class ResultRecord:
 
 @dataclass
 class AABB:
+    """Axis-aligned box; lo/hi (..., 3)."""
+
     lo: Any
     hi: Any
+
+    @staticmethod
+    def empty(batch_shape=(), device="cuda") -> "AABB":
+        dev = resolve_device(device)
+        shape = tuple(batch_shape) + (3,)
+        return AABB(
+            lo=torch.full(shape, FLT_MAX, dtype=torch.float32, device=dev),
+            hi=torch.full(shape, -FLT_MAX, dtype=torch.float32, device=dev))
+
+    def insert(self, other: "AABB") -> "AABB":
+        return AABB(torch.minimum(self.lo, other.lo),
+                    torch.maximum(self.hi, other.hi))
+
+    def center(self):
+        return 0.5 * (self.lo + self.hi)
+
+    def size(self):
+        return self.hi - self.lo

@@ -34,9 +34,23 @@ def normalize(v):
     return v * torch.rsqrt(dot(v, v))[..., None]
 
 
+def safe_normalize(v, eps=1e-20):
+    return v * torch.rsqrt(torch.clamp_min(dot(v, v), eps))[..., None]
+
+
 def reflect(i, n):
     """2*dot(n, i)*n - i, with ``i`` pointing away from the surface."""
     return 2.0 * dot(n, i)[..., None] * n - i
+
+
+def refract(i, n, eta):
+    """Refraction of ``i`` (pointing away from the surface) about n with
+    ratio eta; the 0-vector on total internal reflection."""
+    cosi = dot(n, i)
+    k = 1.0 - eta * eta * (1.0 - cosi * cosi)
+    tdir = (eta * cosi - torch.sqrt(torch.clamp_min(k, 0.0)))[..., None] * n \
+        - eta * i
+    return torch.where((k < 0.0)[..., None], torch.zeros_like(i), tdir)
 
 
 def faceforward(n, i, nref):
@@ -62,3 +76,36 @@ def orthonormal_basis(w):
     v = normalize(v)
     u = cross(v, w)
     return u, v
+
+
+def mat4_apply(m, v):
+    """Row vectors ``v`` (..., 4) times ``m.T`` for a 4x4 ``m``, written
+    out as f32 products and sums: no matmul, so no reduced-precision
+    (TF32) path whatever the global matmul settings are."""
+    return (v[..., 0:1] * m[:, 0] + v[..., 1:2] * m[:, 1]
+            + v[..., 2:3] * m[:, 2] + v[..., 3:4] * m[:, 3])
+
+
+def mat4_mul(a, b):
+    """``a @ b`` of two 4x4 matrices, as ``mat4_apply``."""
+    return mat4_apply(b.transpose(0, 1), a)
+
+
+def mat4_inv(m):
+    """Inverse of a 4x4 matrix, solved in f64 and rounded to f32 (the GL
+    projection of a 1e6 near/far ratio is too ill-conditioned for an f32
+    or TF32 solve)."""
+    return torch.linalg.inv(m.to(torch.float64)).to(m.dtype)
+
+
+def transform_point(m, p):
+    """Apply a 4x4 matrix to point(s) (..., 3) with the perspective
+    divide."""
+    r = mat4_apply(m, torch.cat([p, torch.ones_like(p[..., :1])], dim=-1))
+    return r[..., :3] / r[..., 3:4]
+
+
+def transform_vector(m, v):
+    """Apply the linear part of a 4x4 matrix to vector(s) (..., 3)."""
+    return (v[..., 0:1] * m[:3, 0] + v[..., 1:2] * m[:3, 1]
+            + v[..., 2:3] * m[:3, 2])

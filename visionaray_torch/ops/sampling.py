@@ -12,6 +12,7 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Any
 
+import numpy as np
 import torch
 
 _MASK = 0xFFFFFFFF
@@ -72,3 +73,18 @@ class Sampler:
             u, s = s.next()
             us.append(u)
         return us, s
+
+
+def radical_inverse(n, base: int = 2, iters: int = 32):
+    """Van der Corput radical inverse of uint32 ``n`` (held in int64, as
+    the PCG code holds them), f32 digit weights as in the reference."""
+    n = as_u32(n)
+    result = torch.zeros(n.shape, dtype=torch.float32, device=n.device)
+    inv_base = np.float32(1.0 / base)
+    inv_bi = inv_base
+    for _ in range(iters):
+        digit = (n % base).to(torch.float32)
+        result = result + digit * float(inv_bi)
+        n = n // base
+        inv_bi = inv_bi * inv_base
+    return result

@@ -1,9 +1,13 @@
-"""Traversal front-end: closest_hit / any_hit over a Scene (port of the
-ClusterBVH, brute-force, sphere and plane branches of ops/trace.py), and
-``TraceConfig``, the traversal switches that the JAX package reads from
-its environment.
+"""Traversal front-end: closest_hit / any_hit / multi_hit over a Scene
+(port of the ClusterBVH, brute-force, sphere and plane branches of
+ops/trace.py), and ``TraceConfig``, the traversal switches that the JAX
+package reads from its environment.
 
-Hit filters, multi_hit and the LBVH tier are not ported yet.
+``hit_filter`` is the custom-intersector hook, ``fn(prim_id, t, u, v, hit)
+-> hit``, applied to every candidate triangle hit: on the brute-force tier
+inside the sweep, on the ClusterBVH tier by re-tracing past each rejected
+winner (the kernel has no per-leaf hook).  The LBVH tier is not ported
+yet.
 """
 
 from __future__ import annotations
@@ -73,13 +77,10 @@ class TraceConfig:
 DEFAULT_TRACE = TraceConfig()
 
 
-def _check_unported(bvh, hit_filter):
-    if hit_filter is not None:
-        raise NotImplementedError("hit filters are not ported yet "
-                                  "(ROADMAP queue 1, item 8)")
+def _check_unported(bvh):
     if bvh is not None and not isinstance(bvh, ClusterBVH):
         raise NotImplementedError("only the ClusterBVH tier is ported "
-                                  "(the LBVH tier is ROADMAP queue 1, item 9)")
+                                  "(the LBVH tier is ROADMAP queue 1, item 5)")
 
 
 def _best_of(t, hit, max_t=None):
@@ -99,8 +100,10 @@ def _merge(dst: HitRecord, src: HitRecord, max_t=None) -> HitRecord:
 
 
 def intersect_triangles_brute(ray: Ray, v1, e1, e2, geom_ids,
-                              prim_offset: int = 0) -> HitRecord:
-    """Chunked brute-force sweep over a triangle soup."""
+                              prim_offset: int = 0,
+                              hit_filter=None) -> HitRecord:
+    """Chunked brute-force sweep over a triangle soup; ``hit_filter``
+    drops candidates before the closest-merge."""
     F = v1.shape[0]
     o = ray.ori[..., None, :]
     d = ray.dir[..., None, :]
@@ -109,6 +112,10 @@ def intersect_triangles_brute(ray: Ray, v1, e1, e2, geom_ids,
         c1 = min(c0 + _CHUNK, F)
         t, u, v, hit = intersect_triangle(o, d, v1[c0:c1], e1[c0:c1],
                                           e2[c0:c1])
+        if hit_filter is not None:
+            pid = torch.arange(c0 + prim_offset, c1 + prim_offset,
+                               dtype=torch.int32, device=t.device)
+            hit = hit_filter(pid.expand(t.shape), t, u, v, hit)
         idx, best_t, best_hit = _best_of(t, hit)
 
         def pick(a):
@@ -164,6 +171,83 @@ def _other_groups(ray, scene, best, merge):
     return best
 
 
+_FILTER_RETRACE_CAP = 16   # re-traces of a filtered query (multi_hit's N)
+
+
+def _filtered_search(ray: Ray, cbvh, mesh, hit_filter, max_t,
+                     trace: TraceConfig) -> HitRecord:
+    """The detached search of ``_cluster_closest_filtered``: trace, ask
+    the filter about each lane's winner, and re-trace the lanes whose
+    winner it rejected from just past that hit, with that primitive
+    excluded (so coplanar or zero-distance repeats cannot livelock), up to
+    _FILTER_RETRACE_CAP launches.  Resolved lanes carry max_t = -1 and
+    never enter a tile.  One host sync per launch (``any(unresolved)``)."""
+    from visionaray_torch.ops.traverse import cluster_closest_hit
+
+    batch = ray.batch_shape
+    dev = ray.dir.device
+    so, sd = ray.ori.detach(), ray.dir.detach()
+    mtb = torch.as_tensor(max_t, dtype=torch.float32,
+                          device=dev).detach().expand(batch)
+    best = HitRecord.none(batch, dev)
+    t0 = torch.zeros(batch, dtype=torch.float32, device=dev)
+    excl = torch.full(batch, -1, dtype=torch.int32, device=dev)
+    unresolved = mtb > 0.0
+    for _ in range(_FILTER_RETRACE_CAP):
+        if not bool(unresolved.any()):
+            break
+        hr = cluster_closest_hit(
+            Ray(ori=so + sd * t0[..., None], dir=sd), cbvh, mesh,
+            max_t=torch.where(unresolved, mtb - t0, -1.0),
+            fanout=trace.fanout, half_skip=trace.half_skip)
+        # a re-hit of the excluded prim: step past it and go on
+        same = hr.hit & (hr.prim_id == excl)
+        hit = hr.hit & ~same
+        t = torch.where(same, FLT_MAX, hr.t)
+        keep = hit_filter(hr.prim_id, t + t0, hr.u, hr.v, hit)
+        accept = unresolved & hit & keep
+        rejected = unresolved & ((hit & ~keep) | same)
+        # where the nudge did not clear the surface numerically, advance by
+        # a t0-proportional epsilon (the cap bounds the loop, not this)
+        adv_t = torch.where(same, torch.clamp_min(t0 * 1e-5, 1e-6), t)
+        best = HitRecord(
+            hit=best.hit | accept,
+            t=torch.where(accept, t + t0, best.t),
+            prim_id=torch.where(accept, hr.prim_id, best.prim_id),
+            geom_id=torch.where(accept, hr.geom_id, best.geom_id),
+            u=torch.where(accept, hr.u, best.u),
+            v=torch.where(accept, hr.v, best.v))
+        t0 = torch.where(rejected, t0 + adv_t * (1.0 + 1e-5) + 1e-7, t0)
+        excl = torch.where(rejected, hr.prim_id, -1)
+        unresolved = rejected
+    return best
+
+
+def _recompute_hits(ray_ori, ray_dir, mesh, hit, pid):
+    """(t, u, v, pid, geom_id) at fixed prims ``pid`` (0 where not
+    ``hit``), differentiable in the ray and the vertices."""
+    pid = torch.where(hit, pid, 0).to(torch.int32)
+    v1, e1, e2 = mesh.corners()
+    t, u, v, _ = intersect_triangle(ray_ori, ray_dir, take(v1, pid),
+                                    take(e1, pid), take(e2, pid))
+    return (torch.where(hit, t, FLT_MAX), torch.where(hit, u, 0.0),
+            torch.where(hit, v, 0.0), pid, take(mesh.geom_ids, pid))
+
+
+def _cluster_closest_filtered(ray: Ray, cbvh, mesh, hit_filter,
+                              max_t=FLT_MAX,
+                              trace: TraceConfig = DEFAULT_TRACE
+                              ) -> HitRecord:
+    """Closest *surviving* hit on the ClusterBVH tier: the detached
+    search of ``_filtered_search``, then t, u, v recomputed at the winning
+    primitive from the original ray, differentiably."""
+    with torch.no_grad():
+        best = _filtered_search(ray, cbvh, mesh, hit_filter, max_t, trace)
+    t, u, v, pid, gid = _recompute_hits(ray.ori, ray.dir, mesh, best.hit,
+                                        best.prim_id)
+    return HitRecord(hit=best.hit, t=t, prim_id=pid, geom_id=gid, u=u, v=v)
+
+
 def closest_hit(ray: Ray, scene, use_bvh: Optional[bool] = None,
                 hit_filter=None, binned: bool = False, max_t=None,
                 trace: TraceConfig = DEFAULT_TRACE) -> HitRecord:
@@ -171,11 +255,13 @@ def closest_hit(ray: Ray, scene, use_bvh: Optional[bool] = None,
 
     Triangles go through the ClusterBVH when ``scene.bvh`` is set
     (``binned``: the treelet-binned path for incoherent rays), else a
-    brute-force sweep; spheres and planes are swept.  ``max_t``: per-lane
-    bound; lanes with max_t <= 0 are dead and never traverse.  ``trace``:
-    the traversal switches (fanout, half_skip, dir_bits).
+    brute-force sweep; spheres and planes are swept.  ``hit_filter``: a
+    rejected winner falls through to the next hit (on the ClusterBVH by
+    re-tracing, coherent tiles).  ``max_t``: per-lane bound; lanes with
+    max_t <= 0 are dead and never traverse.  ``trace``: the traversal
+    switches (fanout, half_skip, dir_bits).
     """
-    _check_unported(scene.bvh, hit_filter)
+    _check_unported(scene.bvh)
     from visionaray_torch.ops.traverse import (
         binned_closest_hit, cluster_closest_hit,
     )
@@ -185,7 +271,10 @@ def closest_hit(ray: Ray, scene, use_bvh: Optional[bool] = None,
             use_bvh = scene.bvh is not None
         mt = FLT_MAX if max_t is None else max_t
         kw = dict(fanout=trace.fanout, half_skip=trace.half_skip)
-        if use_bvh and binned and scene.bvh.treelet_size > 0:
+        if use_bvh and hit_filter is not None:
+            hr = _cluster_closest_filtered(ray, scene.bvh, scene.mesh,
+                                           hit_filter, max_t=mt, trace=trace)
+        elif use_bvh and binned and scene.bvh.treelet_size > 0:
             hr = binned_closest_hit(ray, scene.bvh, scene.mesh, max_t=mt,
                                     dir_bits=trace.dir_bits, **kw)
         elif use_bvh:
@@ -194,7 +283,8 @@ def closest_hit(ray: Ray, scene, use_bvh: Optional[bool] = None,
         else:
             v1, e1, e2 = scene.mesh.corners()
             hr = intersect_triangles_brute(ray, v1, e1, e2,
-                                           scene.mesh.geom_ids)
+                                           scene.mesh.geom_ids,
+                                           hit_filter=hit_filter)
         best = _merge(best, hr)
     best = _other_groups(ray, scene, best, _merge)
     if max_t is not None:
@@ -211,8 +301,10 @@ def any_hit(ray: Ray, scene, max_t, use_bvh: Optional[bool] = None,
             hit_filter=None, binned: bool = False,
             trace: TraceConfig = DEFAULT_TRACE) -> HitRecord:
     """Any-hit (occlusion) query: a hit counts iff hit && 0 <= t < max_t.
-    ``binned`` takes ``trace.shadow_m`` treelet slots."""
-    _check_unported(scene.bvh, hit_filter)
+    ``binned`` takes ``trace.shadow_m`` treelet slots.  Through a
+    ``hit_filter`` the ClusterBVH tier answers with the closest surviving
+    hit, so occlusion sees through rejected (e.g. alpha-masked) hits."""
+    _check_unported(scene.bvh)
     from visionaray_torch.ops.traverse import binned_any_hit, cluster_any_hit
     best = HitRecord.none(ray.batch_shape, ray.dir.device)
 
@@ -223,7 +315,11 @@ def any_hit(ray: Ray, scene, max_t, use_bvh: Optional[bool] = None,
         if use_bvh is None:
             use_bvh = scene.bvh is not None
         kw = dict(fanout=trace.fanout, half_skip=trace.half_skip)
-        if use_bvh and binned and scene.bvh.treelet_size > 0:
+        if use_bvh and hit_filter is not None:
+            hr = _cluster_closest_filtered(ray, scene.bvh, scene.mesh,
+                                           hit_filter, max_t=max_t,
+                                           trace=trace)
+        elif use_bvh and binned and scene.bvh.treelet_size > 0:
             hr = binned_any_hit(ray, scene.bvh, scene.mesh, max_t,
                                 m=trace.shadow_m, dir_bits=trace.dir_bits,
                                 **kw)
@@ -232,9 +328,106 @@ def any_hit(ray: Ray, scene, max_t, use_bvh: Optional[bool] = None,
         else:
             v1, e1, e2 = scene.mesh.corners()
             hr = intersect_triangles_brute(ray, v1, e1, e2,
-                                           scene.mesh.geom_ids)
+                                           scene.mesh.geom_ids,
+                                           hit_filter=hit_filter)
         best = merge(best, hr)
     return _other_groups(ray, scene, best, merge)
+
+
+def _cluster_multi_hit(ray: Ray, cbvh, mesh, k: int):
+    """Top-k triangle hits on the ClusterBVH tier: k closest-hit launches,
+    each from just past the previous winner with that primitive excluded;
+    lanes out of hits carry max_t = -1.  Surfaces coincident within the
+    advance epsilon beyond the first are skipped.  Returns (t, hit,
+    prim_id, geom_id, u, v), each (..., k), sorted by t by construction,
+    differentiable by recompute."""
+    from visionaray_torch.ops.traverse import cluster_closest_hit
+
+    batch = ray.batch_shape
+    dev = ray.dir.device
+    with torch.no_grad():
+        so, sd = ray.ori.detach(), ray.dir.detach()
+        t0 = torch.zeros(batch, dtype=torch.float32, device=dev)
+        excl = torch.full(batch, -1, dtype=torch.int32, device=dev)
+        live = torch.ones(batch, dtype=torch.bool, device=dev)
+        oks, pids = [], []
+        for _ in range(k):
+            hr = cluster_closest_hit(
+                Ray(ori=so + sd * t0[..., None], dir=sd), cbvh, mesh,
+                max_t=torch.where(live, FLT_MAX, -1.0))
+            ok = live & hr.hit & (hr.prim_id != excl)
+            oks.append(ok)
+            pids.append(hr.prim_id)
+            t0 = torch.where(ok, t0 + hr.t * (1.0 + 1e-6) + 1e-7, t0)
+            excl = torch.where(ok, hr.prim_id, -1)
+            live = ok
+        hit_k = torch.stack(oks, dim=-1)
+        pid_k = torch.stack(pids, dim=-1)
+    t, u, v, pid, gid = _recompute_hits(ray.ori[..., None, :],
+                                        ray.dir[..., None, :], mesh, hit_k,
+                                        pid_k)
+    return t, hit_k, pid, gid, u, v
+
+
+def _swept_group(t, hit, n, offset, geom_ids, u=None, v=None):
+    pid = torch.arange(offset, offset + n, dtype=torch.int32,
+                       device=t.device).expand(t.shape)
+    z = torch.zeros_like(t)
+    return (t, hit, pid, geom_ids.expand(t.shape),
+            z if u is None else u, z if v is None else v)
+
+
+def multi_hit(ray: Ray, scene, k: int = 16,
+              use_bvh: Optional[bool] = None) -> HitRecord:
+    """The k nearest hits per ray, sorted by t: a HitRecord whose fields
+    carry a trailing k axis, unused slots hit=False, t=FLT_MAX.  Triangles
+    take k re-traces on the ClusterBVH (when built) or a sweep; spheres and
+    planes are swept; all merged by a stable sort on t (ties: lower prim
+    first, as ``lax.top_k``)."""
+    _check_unported(scene.bvh)
+    groups = []   # (t, hit, prim_id, geom_id, u, v) each (..., M_g)
+    o = ray.ori[..., None, :]
+    d = ray.dir[..., None, :]
+    offset = 0
+    if scene.mesh is not None:
+        if use_bvh is None:
+            use_bvh = scene.bvh is not None
+        if use_bvh:
+            groups.append(_cluster_multi_hit(ray, scene.bvh, scene.mesh, k))
+        else:
+            v1, e1, e2 = scene.mesh.corners()
+            t, u, v, hit = intersect_triangle(o, d, v1, e1, e2)
+            groups.append(_swept_group(t, hit, scene.num_triangles, offset,
+                                       scene.mesh.geom_ids, u, v))
+        offset += scene.num_triangles
+    if scene.spheres is not None:
+        t, hit = intersect_sphere(o, d, scene.spheres.center,
+                                  scene.spheres.radius)
+        groups.append(_swept_group(t, hit, scene.num_spheres, offset,
+                                   scene.spheres.geom_ids))
+        offset += scene.num_spheres
+    if scene.planes is not None:
+        t, hit = intersect_plane(o, d, scene.planes.normal,
+                                 scene.planes.offset)
+        groups.append(_swept_group(t, hit, scene.num_planes, offset,
+                                   scene.planes.geom_ids))
+
+    t, hit, pid, gid, u, v = (torch.cat(f, dim=-1) for f in zip(*groups))
+    tt = torch.where(hit & (t >= 0.0), t, FLT_MAX)
+    kk = min(k, tt.shape[-1])
+    idx = torch.sort(tt, dim=-1, stable=True).indices[..., :kk]
+
+    def pick(a, fill):
+        a = torch.gather(a, -1, idx)
+        if kk == k:
+            return a
+        pad = torch.full(a.shape[:-1] + (k - kk,), fill, dtype=a.dtype,
+                         device=a.device)
+        return torch.cat([a, pad], dim=-1)
+
+    tk = pick(tt, FLT_MAX)
+    return HitRecord(hit=tk < FLT_MAX, t=tk, prim_id=pick(pid, 0),
+                     geom_id=pick(gid, 0), u=pick(u, 0.0), v=pick(v, 0.0))
 
 
 def prim_type_of(scene, prim_id):

@@ -1,5 +1,5 @@
-"""Frame rendering front end (port of sched/render.py: the simple and the
-path-tracing kernels).
+"""Frame rendering front end (port of sched/render.py: the simple,
+Whitted, AO and path-tracing kernels, and the boundary-gradient term).
 
 Images are (H, W, 4) with row 0 the bottom scanline.  A render runs under
 torch.inference_mode() unless autograd is on and a tensor of the scene, the
@@ -16,15 +16,18 @@ from typing import Any, Optional
 
 import torch
 
+from visionaray_torch.kernels.ao import ao_kernel
 from visionaray_torch.kernels.params import KernelParams
 from visionaray_torch.kernels.pathtracing import pathtracing_kernel
 from visionaray_torch.kernels.simple import simple_kernel
+from visionaray_torch.kernels.whitted import whitted_kernel
 from visionaray_torch.ops.sampling import Sampler, as_u32, pcg_hash
 from visionaray_torch.shading.lights import light_groups
 
-KERNELS = {"simple": simple_kernel, "pathtracing": pathtracing_kernel}
-# the reference's other kernels, not ported yet (ROADMAP queue 1, item 1)
-UNPORTED = ("whitted", "ao", "volume")
+KERNELS = {"simple": simple_kernel, "whitted": whitted_kernel,
+           "ao": ao_kernel, "pathtracing": pathtracing_kernel}
+# the reference's volume kernel, not ported yet (ROADMAP queue 1, item 6)
+UNPORTED = ("volume",)
 
 SSAA_OFFSETS = {
     1: [(0.0, 0.0)],
@@ -85,8 +88,8 @@ def _grad_scope(scene, cam, params=None):
 def _check_algo(algo: str):
     if algo not in KERNELS:
         raise NotImplementedError(
-            f"algo={algo!r}: only 'simple' and 'pathtracing' are ported "
-            f"({', '.join(UNPORTED)}: ROADMAP queue 1, item 1)")
+            f"algo={algo!r}: the ported kernels are {', '.join(KERNELS)} "
+            f"({', '.join(UNPORTED)}: ROADMAP queue 1, item 6)")
 
 
 def algo_defaults(algo: str):
@@ -160,19 +163,28 @@ def render(scene, cam, width: int, height: int, algo: str = "simple",
            ambient: Optional[tuple] = None, pixel_sampler: Optional[str] = None,
            frame_num: int = 1, seed: int = 0, tile_size: int = 0,
            rt: Optional[RenderTarget] = None, nee: bool = False,
-           spectral: int = 0, hit_filter=None, boundary=None):
+           spectral: int = 0, hit_filter=None, boundary=None,
+           boundary_opts: Optional[dict] = None):
     """Render one frame on the scene's device; returns a RenderTarget
     (pass ``rt`` for the progressive blend, alpha = 1/frame_num).
 
     Defaults as in the JAX package: the simple kernel; bounces, ambient
     and pixel sampler by algorithm (``algo_defaults``); epsilon =
-    max(1e-3, 1e-5 * scene diagonal).  The Whitted, AO and volume kernels,
-    ``spectral``, ``boundary`` and typed render targets are not ported.
+    max(1e-3, 1e-5 * scene diagonal).
+
+    ``hit_filter``: the custom-intersector hook ``fn(prim_id, t, u, v,
+    hit) -> hit`` of every closest/any-hit query of the kernel.
+    ``boundary``: True (adjacency built here, on the host) or an
+    ``EdgeAdjacency`` adds the zero-valued image whose gradient is the
+    primary-visibility boundary term of the mesh edges (and, with spheres
+    in the scene, of their silhouettes); ``boundary_opts`` are passed to
+    ``diff/boundary.py::boundary_image``.  The volume kernel, ``spectral``
+    and typed render targets are not ported.
     """
     _check_algo(algo)
-    if spectral or (boundary is not None and boundary is not False):
-        raise NotImplementedError("spectral and boundary rendering are not "
-                                  "ported yet")
+    if spectral:
+        raise NotImplementedError("spectral rendering is not ported yet "
+                                  "(ROADMAP queue 1, item 6)")
     if rt is not None and not isinstance(rt, RenderTarget):
         raise NotImplementedError("only the float RenderTarget is ported")
     d_bounces, d_ambient, d_sampler = algo_defaults(algo)
@@ -182,7 +194,7 @@ def render(scene, cam, width: int, height: int, algo: str = "simple",
     with _grad_scope(scene, cam):
         if epsilon is None:
             bbox = scene.bbox()
-            diag = float(torch.linalg.norm(bbox.hi - bbox.lo))
+            diag = float(torch.linalg.norm(bbox.hi - bbox.lo).detach())
             epsilon = max(1e-3, diag * 1e-5)
         params = KernelParams.create(
             scene, num_bounces=bounces, epsilon=epsilon, bg_color=bg_color,
@@ -190,6 +202,10 @@ def render(scene, cam, width: int, height: int, algo: str = "simple",
         color, depth = _render_frame(params, cam, width, height, algo, spp,
                                      pixel_sampler, tile_size, frame_num,
                                      seed, nee=nee)
+        if boundary is not None and boundary is not False:
+            color = color + _boundary_term(params, cam, width, height, algo,
+                                           nee, frame_num, seed, boundary,
+                                           boundary_opts)
         if rt is None:
             return RenderTarget(color=color, depth=depth, width=width,
                                 height=height)
@@ -197,3 +213,29 @@ def render(scene, cam, width: int, height: int, algo: str = "simple",
                                    device=color.device)
         return dataclasses.replace(rt, color=rt.color * (1.0 - alpha) + color * alpha,
                        depth=rt.depth * (1.0 - alpha) + depth * alpha)
+
+
+def _boundary_term(params, cam, width, height, algo, nee, frame_num, seed,
+                   boundary, boundary_opts):
+    """The zero-valued images of diff/boundary.py whose gradients are the
+    boundary terms of the mesh edges and of the sphere silhouettes."""
+    from visionaray_torch.diff.boundary import (
+        EdgeAdjacency, boundary_image, build_edge_adjacency,
+        sphere_boundary_image,
+    )
+    scene = params.scene
+    img = torch.zeros((height, width, 4), dtype=torch.float32,
+                      device=scene.device)
+    if scene.mesh is not None:
+        adj = boundary if isinstance(boundary, EdgeAdjacency) else \
+            build_edge_adjacency(scene.mesh.faces.cpu().numpy(),
+                                 scene.mesh.vertices.detach().cpu().numpy(),
+                                 device=scene.device)
+        img = img + boundary_image(params, cam, width, height, adj,
+                                   algo=algo, nee=nee, frame_num=frame_num,
+                                   seed=seed, **(boundary_opts or {}))
+    if scene.spheres is not None:
+        img = img + sphere_boundary_image(params, cam, width, height,
+                                          algo=algo, nee=nee,
+                                          frame_num=frame_num, seed=seed)
+    return img

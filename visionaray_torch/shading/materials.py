@@ -12,7 +12,7 @@ from typing import Any
 
 import torch
 
-from visionaray_torch.core.vecmath import dot
+from visionaray_torch.core.vecmath import dot, reflect
 from visionaray_torch.device import resolve_device, take
 from visionaray_torch.shading import brdf
 
@@ -192,6 +192,16 @@ class Materials:
                         torch.where(t == MaterialType.MIRROR, pdf_m,
                                     torch.ones_like(pdf_d))))
         return f, wi, pdf
+
+    def specular_bounce(self, view_dir, normal):
+        """Whitted-bounce reflectivity per type: matte kr = 0, mirror
+        kr = mat.kr, every other type (plastic, emissive) 0.1.  Returns
+        (reflected_dir, kr)."""
+        refl = reflect(view_dir, normal)
+        kr = torch.where(
+            self.mtype == MaterialType.MATTE, 0.0,
+            torch.where(self.mtype == MaterialType.MIRROR, self.kr, 0.1))
+        return refl, kr
 
     def is_emissive(self):
         return self.mtype == MaterialType.EMISSIVE

@@ -28,7 +28,7 @@ class Surface:
 def get_surface(hit: HitRecord, ray: Ray, scene) -> Surface:
     if scene.textures is not None:
         raise NotImplementedError("textures are not ported yet "
-                                  "(ROADMAP queue 1, item 8)")
+                                  "(ROADMAP queue 1, item 6)")
     batch = tuple(hit.t.shape)
     dev = hit.t.device
     isect_pos = ray.at(torch.where(hit.hit, hit.t, 1.0))
