@@ -90,6 +90,35 @@ Phases, each of which fails the run (non-zero exit) when it fails:
     plain version on COMPARE_LANES lanes, the launches against the plain
     version.
 
+14. The LBVH, the CLI's default tree: sponza_like_scene(260_000) with its
+    default build_bvh=True on the card (lbvh_scene_s; lbvh_build_s a
+    second build_lbvh timed alone; tables equal to the CPU build).  On it,
+    every search runs traverse_lbvh.cu, one thread per ray: (a) the simple
+    frame, render(scene, cam, 1920, 1080) with defaults only
+    (lbvh_simple_frame_s), exactly one lbvh_closest launch; (b) the 5-bounce
+    NEE frame of phase 3 (lbvh_frame_s), its launches per mode; (c) the
+    full-width training step (lbvh_step_s, peak memory, 0 traversal launches
+    in backward, finite non-zero gradients); (d) multi_hit(primary rays,
+    k=16) (lbvh_multi_hit_s): one lbvh_multi launch, t sorted along k, slot
+    0 the simple frame's hit; (e) the simple frame through phase 13's
+    prim % 7 filter (lbvh_filtered_frame_s), its re-trace launches.  Every
+    launch mode (first, middle and last launch) is held against the plain
+    version on COMPARE_LANES lanes: hit equal everywhere, t equal on the
+    same ref, ref equal where the nearest hit is unique (any-hit: equal);
+    every launch is timed and counted (box and primitive tests) for its
+    bound.  At 64x64 and 32x32 on sponza_like_scene(4000)'s LBVH, the image
+    and the gradient through the kernel are held to the plain version's
+    with phase 4's and phase 6's limits.
+15. The native builders: build_sah and build_sbvh of the same mesh on the
+    host (sah_build_s, sbvh_build_s, each tree's sah_cost beside the
+    LBVH's), then the simple frame on each (sah_simple_frame_s,
+    sbvh_simple_frame_s); the SBVH's launch runs the generalized-leaf form.
+16. The sphere BVH: 65,536 spheres placed from a numpy seed in a 40-unit
+    cube, radii log-uniform in [0.01, 0.5] and 1% at 1e-9, over a plane
+    and under one point light, sphere_bvh = build_sphere_bvh(spheres);
+    render(..., algo="whitted") at 1080p (sphere_frame_s): sphere_closest
+    and sphere_any launches, held against the plain version.
+
 Output: one line per check, then a JSON line with per-kernel numbers, the
 card's name and power limit, and as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -115,20 +144,24 @@ import time
 import numpy as np
 import torch
 
+import visionaray_torch.ops.traversal as tt
 import visionaray_torch.ops.traverse as trav
 from visionaray_torch.core.camera import Pinhole
-from visionaray_torch.core.scene import Scene, TriangleMesh
+from visionaray_torch.core.scene import Planes, Scene, Spheres, TriangleMesh
 from visionaray_torch.core.types import Ray
 from visionaray_torch.diff.boundary import (
     boundary_image, build_edge_adjacency, silhouette_mask,
 )
 from visionaray_torch.kernels.params import KernelParams
+from visionaray_torch.ops import sah
 from visionaray_torch.ops.cluster_bvh import build_cluster_bvh
+from visionaray_torch.ops.lbvh import build_lbvh, sah_cost
 from visionaray_torch.ops.trace import TraceConfig, closest_hit, multi_hit
 from visionaray_torch.sched import step
 from visionaray_torch.sched.render import _pixel_grid, render, render_pixels
 from visionaray_torch.scenes.sponza_like import sponza_like_scene
 from visionaray_torch.shading.lights import PointLights
+from visionaray_torch.shading.materials import Materials
 
 WIDTH, HEIGHT, SPP, BOUNCES = 1920, 1080, 1, 5
 TARGET_TRIS, K, T = 260_000, 32, 128
@@ -185,6 +218,13 @@ SWITCHES = {
 ALGO_LAUNCHES = {"whitted": {"radix_closest": 5, "radix_any": 4},
                  "ao": {"radix_closest": 1, "radix_any": 8}}
 MULTI_HIT_K = 16
+# phases 14-16: the LBVH tier's kernel, the card form of the jnp tier
+# (visionaray_tpu/ops/traversal.py _traverse_one, no pallas_call)
+LBVH_SOURCE = "visionaray_torch/ops/cuda/traverse_lbvh.cu"
+LBVH_REPLACES = "visionaray_tpu/ops/traversal.py:33"
+LBVH_ENTRY = "vsnray_traverse_lbvh"
+FLOP_SPHERE = 32                 # ops of one sphere test
+SPHERE_COUNT = 65_536
 
 
 def reject_mod7(pid, t, u, v, hit):
@@ -282,6 +322,53 @@ def plain_traversal():
         trav.cluster_traverse = kernel_fn
 
 
+class BvhRecorder:
+    """Stands in for traversal.bvh_traverse (the LBVH tier's wrapper)
+    during a warm frame and keeps a copy of the inputs of every launch on
+    the card, by LAUNCHES key, in launch order."""
+
+    def __init__(self, fn):
+        self.fn = fn
+        self.launches = {}
+
+    @property
+    def first(self):
+        return {mode: lns[0] for mode, lns in self.launches.items()}
+
+    def __call__(self, o, d, max_t, bvh, prim, tables, mode, k=1,
+                 counters=None):
+        if o.shape[0]:
+            self.launches.setdefault(tt.launch_key(prim, mode), []).append(
+                dict(o=o.clone(), d=d.clone(), max_t=max_t.clone(), bvh=bvh,
+                     prim=prim, tables=tables, mode=mode, k=k))
+        return self.fn(o, d, max_t, bvh, prim, tables, mode, k, counters)
+
+
+@contextlib.contextmanager
+def bvh_recorded(rec):
+    """bvh_traverse replaced by the BvhRecorder ``rec``."""
+    tt.bvh_traverse = rec
+    try:
+        yield rec
+    finally:
+        tt.bvh_traverse = rec.fn
+
+
+@contextlib.contextmanager
+def plain_bvh():
+    """Every LBVH-tier search through the plain version, on the card."""
+    kernel_fn = tt.bvh_traverse
+
+    def plain(o, d, max_t, bvh, prim, tables, mode, k=1, counters=None):
+        return tt.traverse_bvh_plain(o, d, max_t, bvh, prim, tables, mode, k)
+
+    tt.bvh_traverse = plain
+    try:
+        yield
+    finally:
+        tt.bvh_traverse = kernel_fn
+
+
 def full_tiles(launch):
     rays = launch["rays"]
     tl = launch["tile_lanes"]
@@ -357,17 +444,23 @@ def form_name(mangled):
     m = re.search(r"coherent_kernelILb(\d)ELb(\d)ELi(\d+)E", mangled)
     if m:
         return "coherent any={} count={} K={}".format(*m.groups())
+    m = re.search(r"lbvh_kernelILi(\d)ELi(\d)ELb(\d)ELb(\d)E", mangled)
+    if m:
+        prim, mode, gen, count = (int(g) for g in m.groups())
+        return (f"lbvh {tt.PRIMS[prim]} {tt.MODES[mode]} "
+                f"generalized={gen} count={count}")
     return mangled
 
 
 def ptxas_lines(log, main_path=False):
     """One line per kernel form; ``main_path``: only the non-counting forms
-    that the main path's frame and its 1f options (K=32, heap) and the
-    radix frames (K=32, and K=40 in the run-time-K form) run."""
+    that the main path's frame and its 1f options (K=32, heap), the radix
+    frames (K=32, and K=40 in the run-time-K form) and the LBVH tier run."""
     out = []
     for name, f in ptxas_report(log).items():
         if main_path and ("count=1" in name or (
-                "K=32" not in name and not name.endswith("K=0 heap=0"))):
+                "K=32" not in name and not name.endswith("K=0 heap=0")
+                and not name.startswith("lbvh"))):
             continue
         out.append(f"{name}: {f['regs']} registers, {f['smem']} B smem, "
                    f"{f['stack']} B stack, {f['spill']} B spills")
@@ -510,35 +603,41 @@ def swizzled_pixels(device):
     return x, y
 
 
-def small_config(device):
-    """sponza_like 4000 (4,804 triangles), K=8, T=16, 3 bounces."""
-    scene, cam = sponza_like_scene(target_tris=4000, device=device)
-    scene.bvh = build_cluster_bvh(scene.mesh, cluster_size=8,
-                                  treelet_size=16)
+def small_config(device, lbvh=False):
+    """sponza_like 4000 (4,804 triangles), K=8, T=16, 3 bounces; ``lbvh``:
+    on the scene's default LBVH instead."""
+    scene, cam = sponza_like_scene(target_tris=4000, build_bvh=lbvh,
+                                   device=device)
+    if not lbvh:
+        scene.bvh = build_cluster_bvh(scene.mesh, cluster_size=8,
+                                      treelet_size=16)
     params = KernelParams.create(scene, num_bounces=3, epsilon=1e-3,
                                  bg_color=(0.2, 0.3, 0.5, 1.0),
                                  ambient_color=(1.0, 1.0, 1.0, 1.0))
     return params, cam
 
 
-def whole_path_check(device):
+def whole_path_check(device, lbvh=False):
     """Small config through the kernel and through the plain version."""
-    params, cam = small_config(device)
+    params, cam = small_config(device, lbvh)
     x, y = _pixel_grid(64, 64, device)
 
     def frame():
         return render_pixels(params, cam, x, y, 64, 64, "pathtracing", 1,
                              "jittered_blend", 1, nee=True)[0]
 
+    trav.reset_launch_counts()
     img_k = frame()
-    with plain_traversal():
+    launched = sum(trav.LAUNCHES.values())
+    with (plain_bvh() if lbvh else plain_traversal()):
         img_p = frame()
     diff = (img_k - img_p).abs()
     mean_abs = float(diff.mean())
     share = float((diff.amax(-1) > IMG_PIX_TOL).float().mean())
     ok = bool(torch.isfinite(img_k).all()) and mean_abs <= IMG_MEAN_ABS \
-        and share <= IMG_PIX_SHARE
-    log(f"whole path 64x64 kernel vs plain: mean_abs={mean_abs:.3e} "
+        and share <= IMG_PIX_SHARE and launched > 0
+    log(f"whole path 64x64{' on the LBVH' if lbvh else ''} kernel vs plain "
+        f"({launched} launches): mean_abs={mean_abs:.3e} "
         f"pixels_over_{IMG_PIX_TOL:g}={share:.4f} "
         f"image_mean={float(img_k.mean()):.6f} {'OK' if ok else 'FAIL'}")
     return ok
@@ -552,9 +651,12 @@ def grad_stats(got, ref):
     return rel, cos
 
 
-def training_step_phase(params, cam, x, y, label="training step"):
-    """Phase 5 (and phase 8's step): bench.py's training step at full
-    width under ``params``."""
+def training_step_phase(params, cam, x, y, label="training step",
+                        modes=None):
+    """Phase 5 (and phase 8's and 14's steps): bench.py's training step at
+    full width under ``params``; ``modes``: the LAUNCHES keys its forward
+    must launch (default: the main path's)."""
+    need = [k for k, _, _ in MODES] if modes is None else list(modes)
     verts = params.scene.mesh.vertices
     cd = params.scene.materials.cd
     torch.cuda.synchronize()
@@ -600,7 +702,7 @@ def training_step_phase(params, cam, x, y, label="training step"):
     nonzero = float(g_v.abs().sum()) > 0 and float(g_c.abs().sum()) > 0
     bwd_launches = sum(bwd.values())
     ok = (finite and nonzero and bwd_launches == 0
-          and all(fwd[k] > 0 for k, _, _ in MODES))
+          and all(fwd[k] > 0 for k in need))
     lanes = -(-x.shape[0] // step.TILE) * step.TILE
     log(f"{label} 1920x1080 spp=1 bounces=5 nee ({lanes} lanes, "
         f"{lanes - x.shape[0]} padding): step_s={step_s:.4f} (steps "
@@ -623,10 +725,10 @@ def training_step_phase(params, cam, x, y, label="training step"):
                     backward_launches=bwd_launches)
 
 
-def grad_check(device):
+def grad_check(device, lbvh=False):
     """Phase 6: loss_and_grads through the kernel and through the plain
-    version at 32x32 on phase 4's configuration."""
-    params, cam = small_config(device)
+    version at 32x32 on phase 4's configuration (``lbvh``: on its LBVH)."""
+    params, cam = small_config(device, lbvh)
     x, y = _pixel_grid(32, 32, device)
     verts = params.scene.mesh.vertices
     cd = params.scene.materials.cd
@@ -636,25 +738,28 @@ def grad_check(device):
                                    width=32, height=32, tile=32 * 32)
 
     loss_k, grads_k = run()
-    with plain_traversal():
+    with (plain_bvh() if lbvh else plain_traversal()):
         loss_p, grads_p = run()
     loss_rel = abs(float(loss_k) - float(loss_p)) / abs(float(loss_p))
     stats = [grad_stats(a, b) for a, b in zip(grads_k, grads_p)]
     ok = (loss_rel <= LOSS_RTOL and all(
         rel <= GRAD_REL_L2 and cos >= GRAD_COS for rel, cos in stats)
         and all(bool(torch.isfinite(g).all()) for g in grads_k))
-    log(f"gradient check 32x32 kernel vs plain: loss_rel={loss_rel:.3e} "
+    log(f"gradient check 32x32{' on the LBVH' if lbvh else ''} kernel vs "
+        f"plain: loss_rel={loss_rel:.3e} "
         f"g_verts rel_l2={stats[0][0]:.3e} cos={stats[0][1]:.9f} "
         f"g_cd rel_l2={stats[1][0]:.3e} cos={stats[1][1]:.9f} "
         f"{'OK' if ok else 'FAIL'}")
     return ok
 
 
-def timed_frames(frame):
+def timed_frames(frame, lbvh=False):
     """Warm frame with the first launch of each mode recorded, a counted
-    frame (counts reset just before), then more timed frames."""
-    rec = LaunchRecorder(trav.cluster_traverse)
-    with recorded(rec):
+    frame (counts reset just before), then more timed frames.  ``lbvh``:
+    record the LBVH tier's launches (bvh_traverse), not the ClusterBVH's."""
+    rec = BvhRecorder(tt.bvh_traverse) if lbvh else \
+        LaunchRecorder(trav.cluster_traverse)
+    with (bvh_recorded(rec) if lbvh else recorded(rec)):
         t0 = time.perf_counter()
         frame(1)
         torch.cuda.synchronize()
@@ -1059,6 +1164,394 @@ def filter_phase(rscene, cam, check_modes, dev):
         multi_hit_times=mtimes, multi_hit_launches=mlaunches)
 
 
+def lbvh_subset(max_t):
+    """Lanes of one LBVH launch for the comparison: COMPARE_LANES live lanes
+    evenly spread over the launch (all of them when fewer), then dead lanes
+    up to COMPARE_LANES."""
+    n = max_t.shape[0]
+    live = torch.nonzero(max_t > 0).reshape(-1)
+    dead = torch.nonzero(~(max_t > 0)).reshape(-1)
+    if live.numel() > COMPARE_LANES:
+        pick = torch.linspace(0, live.numel() - 1, COMPARE_LANES,
+                              device=max_t.device).long()
+        return live[pick]
+    rest = min(COMPARE_LANES - live.numel(), dead.numel())
+    idx = torch.cat([live, dead[:rest]])
+    return idx if idx.numel() else torch.arange(min(n, 1),
+                                                device=max_t.device)
+
+
+def lbvh_bytes(ln):
+    """Bytes one LBVH launch must move: each input read once (lanes, node
+    and leaf tables, primitive tables), each output written once."""
+    bvh, n, k = ln["bvh"], ln["o"].shape[0], ln["k"]
+    tables = [bvh.node_lo, bvh.node_hi, bvh.left, bvh.right, bvh.prim_ids,
+              *ln["tables"]]
+    if bvh.leaf_first is not None:
+        tables += [bvh.leaf_first, bvh.leaf_count]
+    return n * 7 * 4 + sum(x.numel() * 4 for x in tables) + n * k * 8
+
+
+def check_lbvh_mode(key, name, launches, count):
+    """traverse_lbvh.cu vs its plain version on the captured launches of one
+    mode: the first, a middle and the last launch compared on
+    lbvh_subset's lanes (hit equal everywhere, t equal on the same ref,
+    ref equal where t differs; any-hit: ref equal); every launch timed and
+    run once more with counters for its bound."""
+    kernel = tt.bvh_traverse
+    first = launches[0]
+    mode, prim = first["mode"], first["prim"]
+    gen = first["bvh"].leaf_first is not None
+    compared = sorted({0, len(launches) // 2, len(launches) - 1})
+    hit_mm = ref_mm = n_lanes = n_live = n_hits = 0
+    max_rel = max_abs = 0.0
+    for i in compared:
+        ln = launches[i]
+        idx = lbvh_subset(ln["max_t"])
+        args = (ln["o"][idx].contiguous(), ln["d"][idx].contiguous(),
+                ln["max_t"][idx].contiguous(), ln["bvh"], prim, ln["tables"],
+                mode, ln["k"])
+        kt, kr = kernel(*args)
+        pt, pr = tt.traverse_bvh_plain(*args)
+        torch.cuda.synchronize()
+        kh, ph = kr >= 0, pr >= 0
+        hit_mm += int((kh != ph).sum())
+        if mode == "any":
+            ref_mm += int((kr != pr).sum())
+        else:
+            ref_mm += int(((kr != pr) & (kt != pt)).sum())
+        same = kh & ph & (kr == pr)
+        if bool(same.any()):
+            dt = (kt - pt).abs()[same]
+            max_abs = max(max_abs, float(dt.max()))
+            max_rel = max(max_rel, float(
+                (dt / pt.abs()[same].clamp_min(1e-30)).max()))
+        n_lanes += idx.numel()
+        n_live += int((args[2] > 0).sum())
+        n_hits += int(ph.sum())
+        if i == 0:
+            plain_ms = cuda_ms(lambda: tt.traverse_bvh_plain(*args), 1)
+            kernel_cmp_ms = cuda_ms(lambda: kernel(*args), 5)
+
+    launch_ms, bounds, live_lanes, tests = [], [], [], [0, 0]
+    flop_prim = FLOP_TRI if prim == "triangle" else FLOP_SPHERE
+    for ln in launches:
+        args = (ln["o"], ln["d"], ln["max_t"], ln["bvh"], prim, ln["tables"],
+                mode, ln["k"])
+        n = ln["o"].shape[0]
+        launch_ms.append(cuda_ms(lambda: kernel(*args), 3))
+        counters = torch.zeros((n, 2), dtype=torch.int32,
+                               device=ln["o"].device)
+        kernel(*args, counters=counters)
+        tot = counters.sum(0, dtype=torch.int64).tolist()
+        tests[0] += tot[0]
+        tests[1] += tot[1]
+        ops = FLOP_BOX * tot[0] + flop_prim * tot[1]
+        bounds.append((lbvh_bytes(ln) / PEAK_BYTES_S * 1e3,
+                       ops / PEAK_F32_S * 1e3))
+        live_lanes.append(int((ln["max_t"] > 0).sum()))
+    t_bytes, t_ops = bounds[0]
+    ok = hit_mm == 0 and ref_mm == 0 and max_rel <= T_RTOL
+    vkey = tt.leaf_variant_key(key, gen)
+    log(f"kernel {name} [{vkey}, traverse_lbvh.cu]: compared launches "
+        f"{compared} lanes={n_lanes} live={n_live} plain_hits={n_hits} "
+        f"hit_mismatch={hit_mm} ref_mismatch={ref_mm} max_rel_t="
+        f"{max_rel:.3e} kernel_ms_compare={kernel_cmp_ms:.4f} plain_ms="
+        f"{plain_ms:.3f} | first launch lanes={first['o'].shape[0]} live="
+        f"{live_lanes[0]} ms={launch_ms[0]:.4f} bound_ms="
+        f"{max(t_bytes, t_ops):.4f} "
+        f"({'bytes' if t_bytes >= t_ops else 'operations'}) | "
+        f"{len(launches)} launches: ms_sum={sum(launch_ms):.4f} "
+        f"bound_ms_sum={sum(max(b) for b in bounds):.4f} box_tests="
+        f"{tests[0]} prim_tests={tests[1]} {'OK' if ok else 'FAIL'}")
+    if len(launches) > 1:
+        log(f"  launch ms {[round(t, 4) for t in launch_ms]} live lanes "
+            f"{live_lanes}")
+    return ok, {
+        "name": name, "route": "cuda", "source": LBVH_SOURCE,
+        "entry": LBVH_ENTRY, "replaces": LBVH_REPLACES, "mode_key": key,
+        "variant": vkey, "launches": count.get(key, 0),
+        "max_abs_err": max_abs, "ms": launch_ms[0], "plain_ms": plain_ms,
+        "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "library_ms": None, "lanes": first["o"].shape[0],
+        "ms_frame": sum(launch_ms),
+        "bound_ms_frame": sum(max(b) for b in bounds),
+        "launch_ms": launch_ms, "launch_live_lanes": live_lanes,
+        "compared_launches": compared, "compare_lanes": n_lanes,
+        "kernel_ms_compare": kernel_cmp_ms, "hit_mismatch": hit_mm,
+        "ref_mismatch": ref_mm, "max_rel_t": max_rel,
+        "box_tests": tests[0], "prim_tests": tests[1],
+        "launches_training_step": 0,
+    }
+
+
+def lbvh_frame_phase(label, frame, expect, entries, exact=True):
+    """A timed frame on a flat BVH (timed_frames with the LBVH recorder):
+    its launches by mode (``expect``: mode -> count, or -> None for "at
+    least one"), all on traverse_lbvh.cu, the image finite and mostly
+    hit, every mode held against the plain version."""
+    rec, launches, warm_s, times, color, depth = timed_frames(frame,
+                                                              lbvh=True)
+    frame_s = sum(times) / len(times)
+    finite = bool(torch.isfinite(color).all())
+    hit = float((depth > 0).float().mean())
+    std = float(color[:, :3].std())
+    n = sum(launches.values())
+    ok = (finite and std > 0 and hit > 0.5
+          and rec.entries[LBVH_ENTRY] == n > 0
+          and all((launches[k] == c) if c is not None else launches[k] > 0
+                  for k, c in expect.items())
+          and (not exact or n == sum(launches[k] for k in expect)))
+    log(f"{label} 1920x1080: frame_s={frame_s:.4f} (frames "
+        f"{', '.join(f'{t:.4f}' for t in times)}) warm_s={warm_s:.3f} "
+        f"launches={ {k: v for k, v in launches.items() if v} } "
+        f"variants={rec.variants} entry_launches={rec.entries} "
+        f"hit_fraction={hit:.4f} image_mean="
+        f"{float(color[:, :3].mean()):.6f} image_std={std:.6f} "
+        f"finite={finite} {'OK' if ok else 'FAIL'}")
+    slug = label.replace(" ", "_")
+    for key, lns in rec.launches.items():
+        good, entry = check_lbvh_mode(key, f"traverse_{key}_{slug}", lns,
+                                      launches)
+        entry["phase"] = label
+        entries.append(entry)
+        ok &= good
+    return ok, dict(frame_s=frame_s, frame_times=times, warm_s=warm_s,
+                    launches={k: v for k, v in launches.items() if v},
+                    variants=rec.variants), color, depth
+
+
+def lbvh_phase(cpu_mesh, dev, entries):
+    """Phase 14: the LBVH of the 260k scene, its frames, step and queries."""
+    out = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        scene, cam = sponza_like_scene(target_tris=TARGET_TRIS, device=dev)
+    torch.cuda.synchronize()
+    out["lbvh_scene_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        again = build_lbvh(scene.mesh)
+    torch.cuda.synchronize()
+    out["lbvh_build_s"] = time.perf_counter() - t0
+    bvh = scene.bvh
+    cpu = build_lbvh(cpu_mesh)
+    fields = ("node_lo", "node_hi", "left", "right", "parent", "prim_ids")
+    same = (all(torch.equal(getattr(bvh, f).cpu(), getattr(cpu, f))
+                and torch.equal(getattr(again, f), getattr(bvh, f))
+                for f in fields) and bvh.depth == cpu.depth)
+    out.update(lbvh_depth=bvh.depth, lbvh_nodes=bvh.num_nodes,
+               lbvh_sah_cost=sah_cost(bvh))
+    log(f"LBVH (sponza_like_scene default): tris={scene.num_triangles} "
+        f"lbvh_scene_s={out['lbvh_scene_s']:.3f} lbvh_build_s="
+        f"{out['lbvh_build_s']:.3f} nodes={bvh.num_nodes} depth={bvh.depth} "
+        f"sah_cost={out['lbvh_sah_cost']:.4f} tables_equal_to_cpu_build="
+        f"{same}")
+    ok = same and isinstance(bvh, type(cpu))
+    del again
+
+    # (a) the simple frame, render's defaults only
+    def simple(num):
+        rt = render(scene, cam, WIDTH, HEIGHT)
+        return rt.color.reshape(-1, 4), rt.depth.reshape(-1)
+
+    with torch.no_grad():
+        good, out["simple"], _, _ = lbvh_frame_phase(
+            "lbvh simple frame", simple, {"lbvh_closest": 1}, entries)
+    ok &= good
+    out["lbvh_simple_frame_s"] = out["simple"]["frame_s"]
+
+    # (b) the 5-bounce NEE frame of phase 3
+    params = KernelParams.create(
+        scene, num_bounces=BOUNCES, epsilon=1e-3,
+        bg_color=(0.2, 0.3, 0.5, 1.0), ambient_color=(1.0, 1.0, 1.0, 1.0))
+    x, y = swizzled_pixels(dev)
+
+    def nee(num):
+        return render_pixels(params, cam, x, y, WIDTH, HEIGHT, "pathtracing",
+                             SPP, "jittered_blend", num, nee=True)
+
+    with torch.no_grad():
+        good, out["frame"], _, _ = lbvh_frame_phase(
+            "lbvh nee frame", nee, {"lbvh_closest": BOUNCES,
+                                    "lbvh_any": BOUNCES}, entries)
+    ok &= good
+    out["lbvh_frame_s"] = out["frame"]["frame_s"]
+
+    # (c) the training step on the LBVH
+    good, out["step"] = training_step_phase(
+        params, cam, x, y, label="lbvh training step",
+        modes=("lbvh_closest", "lbvh_any"))
+    good &= out["step"]["forward_entries"][LBVH_ENTRY] == sum(
+        out["step"]["forward_launches"].values())
+    ok &= good
+    out["lbvh_step_s"] = out["step"]["step_s"]
+    for e in entries:
+        if e.get("phase") == "lbvh nee frame":
+            e["launches_training_step"] = \
+                out["step"]["forward_launches"].get(e["mode_key"], 0)
+
+    with torch.no_grad():
+        # (d) multi_hit on the primary rays
+        px, py = _pixel_grid(WIDTH, HEIGHT, dev)
+        ray = cam.primary_rays(px, py, WIDTH, HEIGHT)
+        ref = closest_hit(ray, scene)
+        mrec = BvhRecorder(tt.bvh_traverse)
+        with bvh_recorded(mrec):
+            multi_hit(ray, scene, k=MULTI_HIT_K)
+            torch.cuda.synchronize()
+        trav.reset_launch_counts()
+        mtimes = []
+        for i in range(TIMED_FRAMES):
+            t0 = time.perf_counter()
+            mh = multi_hit(ray, scene, k=MULTI_HIT_K)
+            torch.cuda.synchronize()
+            mtimes.append(time.perf_counter() - t0)
+            if i == 0:
+                mlaunches = dict(trav.LAUNCHES)
+        h0 = mh.hit[:, 0]
+        sorted_k = bool((mh.t[:, 1:] >= mh.t[:, :-1]).all())
+        slot0 = (torch.equal(h0, ref.hit)
+                 and torch.equal(mh.prim_id[h0, 0], ref.prim_id[h0])
+                 and torch.equal(mh.t[h0, 0], ref.t[h0]))
+        hist = torch.bincount(mh.hit.sum(1), minlength=MULTI_HIT_K + 1)
+        out["lbvh_multi_hit_s"] = sum(mtimes) / len(mtimes)
+        good = (sorted_k and slot0
+                and mlaunches["lbvh_multi"] == 1
+                and sum(mlaunches.values()) == 1)
+        log(f"lbvh multi_hit 1920x1080 primary rays k={MULTI_HIT_K}: "
+            f"lbvh_multi_hit_s={out['lbvh_multi_hit_s']:.4f} (calls "
+            f"{', '.join(f'{t:.4f}' for t in mtimes)}) launches="
+            f"{ {k: v for k, v in mlaunches.items() if v} } t sorted along "
+            f"k={sorted_k} slot 0 = closest hit (prim, t bit-equal)={slot0} "
+            f"lanes by hits "
+            f"found={hist.tolist()} {'OK' if good else 'FAIL'}")
+        for key, lns in mrec.launches.items():
+            g, entry = check_lbvh_mode(key, "traverse_lbvh_multi_k16", lns,
+                                       mlaunches)
+            entry["phase"] = "lbvh multi_hit"
+            entries.append(entry)
+            good &= g
+        ok &= good
+        del mrec
+
+        # (e) the simple frame through the prim % 7 filter
+        def filtered(num):
+            rt = render(scene, cam, WIDTH, HEIGHT, hit_filter=reject_mod7)
+            return rt.color.reshape(-1, 4), rt.depth.reshape(-1)
+
+        good, out["filtered"], _, _ = lbvh_frame_phase(
+            "lbvh filtered frame", filtered, {"lbvh_closest": None}, entries)
+        n = out["filtered"]["launches"].get("lbvh_closest", 0)
+        got = closest_hit(ray, scene, hit_filter=reject_mod7)
+        kept_rejected = int((got.hit & (got.prim_id % 7 == 0)).sum())
+        acc = ref.hit & (ref.prim_id % 7 != 0)
+        same = (bool(got.hit[acc].all())
+                and torch.equal(got.prim_id[acc], ref.prim_id[acc])
+                and torch.equal(got.t[acc], ref.t[acc]))
+        good &= 1 <= n <= 16 and kept_rejected == 0 and same
+        log(f"  lbvh filtered: re-trace launches={n} accepted prims the "
+            f"filter rejects={kept_rejected} accepted winners same prim and "
+            f"t={same} {'OK' if good else 'FAIL'}")
+        ok &= good
+        out["lbvh_filtered_frame_s"] = out["filtered"]["frame_s"]
+    return ok, out, scene, cam
+
+
+def builders_phase(scene, cam, entries):
+    """Phase 15: the native SAH and SBVH builds of the mesh and the simple
+    frame on each.  The builders' library is compiled (g++, at first use)
+    before the builds are timed."""
+    t0 = time.perf_counter()
+    ok = sah.available()
+    out = {"sah_library_s": time.perf_counter() - t0}
+    log(f"native SAH/SBVH library: sah_library_s={out['sah_library_s']:.3f} "
+        f"available={ok} -> {sah.library_path()}")
+    for name in ("sah", "sbvh"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        bvh = getattr(sah, f"build_{name}")(scene.mesh)
+        torch.cuda.synchronize()
+        out[f"{name}_build_s"] = time.perf_counter() - t0
+        out[f"{name}_sah_cost"] = sah_cost(bvh)
+        out[f"{name}_depth"] = bvh.depth
+        gen = bvh.leaf_first is not None
+        log(f"{name} build (host, native): {name}_build_s="
+            f"{out[f'{name}_build_s']:.3f} nodes={bvh.num_nodes} refs="
+            f"{bvh.num_prims} depth={bvh.depth} sah_cost="
+            f"{out[f'{name}_sah_cost']:.4f} generalized_leaves={gen}")
+        s2 = dataclasses.replace(scene, bvh=bvh)
+
+        def frame(num, s2=s2):
+            rt = render(s2, cam, WIDTH, HEIGHT)
+            return rt.color.reshape(-1, 4), rt.depth.reshape(-1)
+
+        with torch.no_grad():
+            good, info, _, _ = lbvh_frame_phase(
+                f"{name} simple frame", frame, {"lbvh_closest": 1}, entries)
+        good &= set(info["variants"]) == {
+            tt.leaf_variant_key("lbvh_closest", gen)}
+        ok &= good
+        out[f"{name}_simple_frame_s"] = info["frame_s"]
+        out[f"{name}_simple_frame"] = info
+    return ok, out
+
+
+def sphere_scene(dev):
+    """Phase 16's field: SPHERE_COUNT spheres in a 40-unit cube, radii
+    log-uniform in [0.01, 0.5] and 1% at 1e-9, over a plane, one point
+    light, camera outside the cube."""
+    rng = np.random.default_rng(16)
+    n = SPHERE_COUNT
+    center = rng.uniform(-20.0, 20.0, (n, 3)).astype(np.float32)
+    radius = np.exp(rng.uniform(np.log(0.01), np.log(0.5), n)).astype(
+        np.float32)
+    radius[rng.choice(n, n // 100, replace=False)] = 1e-9
+    spheres = Spheres.create(center, radius,
+                             geom_ids=rng.integers(0, 3, n), device=dev)
+    planes = Planes.create([[0.0, 1.0, 0.0]], [-21.0], geom_ids=[3],
+                           device=dev)
+    materials = Materials.concatenate([
+        Materials.plastic(cd=(0.8, 0.3, 0.2), specular_exp=32.0,
+                          device=dev),
+        Materials.matte(cd=(0.3, 0.7, 0.4), device=dev),
+        Materials.mirror(cr=(0.9, 0.9, 0.9), device=dev),
+        Materials.matte(cd=(0.7, 0.7, 0.7), device=dev)])
+    t0 = time.perf_counter()
+    sbvh = tt.build_sphere_bvh(spheres)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    scene = Scene.create(spheres=spheres, planes=planes, materials=materials,
+                         lights=PointLights.create((10.0, 40.0, 30.0),
+                                                   device=dev),
+                         sphere_bvh=sbvh, device=dev)
+    cam = Pinhole.create(eye=(0.0, 5.0, 62.0), center=(0.0, -2.0, 0.0),
+                         fovy=np.deg2rad(45.0), aspect=16.0 / 9.0,
+                         device=dev)
+    return scene, cam, build_s
+
+
+def sphere_phase(dev, entries):
+    """Phase 16: the Whitted frame over the sphere field's BVH."""
+    scene, cam, build_s = sphere_scene(dev)
+    bvh = scene.sphere_bvh
+    log(f"sphere BVH: spheres={scene.num_spheres} sphere_bvh_build_s="
+        f"{build_s:.3f} nodes={bvh.num_nodes} depth={bvh.depth}")
+
+    def frame(num):
+        rt = render(scene, cam, WIDTH, HEIGHT, algo="whitted")
+        return rt.color.reshape(-1, 4), rt.depth.reshape(-1)
+
+    with torch.no_grad():
+        ok, info, _, _ = lbvh_frame_phase(
+            "sphere whitted frame", frame, {"sphere_closest": None,
+                                            "sphere_any": None}, entries)
+    return ok, dict(sphere_frame_s=info["frame_s"],
+                    sphere_bvh_build_s=build_s, sphere_frame=info)
+
+
 def profile_run(run, label, table_path=None):
     """``--profile``: torch.profiler over one ``run()`` (a frame or a
     training step); prints the device busy share and the top kernels by
@@ -1084,7 +1577,8 @@ def profile_run(run, label, table_path=None):
     dev_rows = sorted((e for e in ka
                        if e.device_type == torch.autograd.DeviceType.CUDA),
                       key=dev_us, reverse=True)
-    groups = {"traverse_kernel": ("binned_kernel", "coherent_kernel"),
+    groups = {"traverse_kernel": ("binned_kernel", "coherent_kernel",
+                                  "lbvh_kernel"),
               "sort": ("Sort", "sort", "Radix", "radix"),
               "gather_scatter": ("gather", "index", "scatter", "Index"),
               "reduce": ("reduce_kernel",),
@@ -1151,7 +1645,8 @@ def main() -> int:
     with torch.no_grad():
         # ---- phase 3 set-up: scene and BVH on the card
         t0 = time.perf_counter()
-        scene, cam = sponza_like_scene(target_tris=TARGET_TRIS, device=dev)
+        scene, cam = sponza_like_scene(target_tris=TARGET_TRIS,
+                                       build_bvh=False, device=dev)
         torch.cuda.synchronize()
         scene_s = time.perf_counter() - t0
         t0 = time.perf_counter()
@@ -1352,6 +1847,20 @@ def main() -> int:
     for e in entries[first:]:
         e["launches_training_step"] = 0
 
+    # ---- phases 14-16: the LBVH tier (traverse_lbvh.cu)
+    slice8 = {}
+    good, slice8["lbvh"], lscene, lcam = lbvh_phase(cpu_mesh, dev, entries)
+    all_ok &= good
+    with torch.no_grad():
+        all_ok &= whole_path_check(dev, lbvh=True)
+    all_ok &= grad_check(dev, lbvh=True)
+    good, slice8["builders"] = builders_phase(lscene, lcam, entries)
+    all_ok &= good
+    good, slice8["spheres"] = sphere_phase(dev, entries)
+    all_ok &= good
+    flat8 = {k: v for part in slice8.values() for k, v in part.items()
+             if k.endswith("_s") or k.endswith("_cost")}
+
     if "--profile" in sys.argv[1:]:
         table = [a.split("=", 1)[1] for a in sys.argv[1:]
                  if a.startswith("--profile-table=")]
@@ -1372,6 +1881,19 @@ def main() -> int:
                                    device=dev)
         profile_run(lambda: _boundary_grad(rscene, cam, WIDTH, HEIGHT, adj),
                     "boundary step")
+        lparams = KernelParams.create(
+            lscene, num_bounces=BOUNCES, epsilon=1e-3,
+            bg_color=(0.2, 0.3, 0.5, 1.0), ambient_color=(1.0, 1.0, 1.0, 1.0))
+        with torch.no_grad():
+            profile_run(lambda: render(lscene, lcam, WIDTH, HEIGHT),
+                        "lbvh simple frame")
+            profile_run(lambda: render_pixels(
+                lparams, lcam, x, y, WIDTH, HEIGHT, "pathtracing", SPP,
+                "jittered_blend", TIMED_FRAMES + 2, nee=True),
+                "lbvh nee frame")
+        profile_run(lambda: step.loss_and_grads(
+            lscene.mesh.vertices, lscene.materials.cd, TIMED_STEPS + 3,
+            lparams, lcam, x, y, nee=True), "lbvh training step")
 
     log(json.dumps({"kernels": entries, "frame_s": frame_s,
                     "entry_launches": rec_entries,
@@ -1383,6 +1905,7 @@ def main() -> int:
                     "radix_bvh_build_s": rbuild_s,
                     "frames_1f": frames_1f, "training_step_1f": step_1f,
                     "switch_frames": switch_frames, **slice7,
+                    **flat8, "lbvh_slice": slice8,
                     "build_s": info["seconds"]}))
     log(f"card: {smi}")
     if not all_ok:

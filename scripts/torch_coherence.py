@@ -223,7 +223,7 @@ def main() -> int:
             return 2
         dev = torch.device("cuda")
         scene, cam = sponza_like_scene(target_tris=cs.TARGET_TRIS,
-                                       device=dev)
+                                       build_bvh=False, device=dev)
         scene.bvh = build_cluster_bvh(scene.mesh, cluster_size=cs.K,
                                       treelet_size=cs.T)
         params = KernelParams.create(

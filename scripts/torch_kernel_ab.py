@@ -202,7 +202,8 @@ def main() -> int:
 
     dev = torch.device("cuda")
     with torch.no_grad():
-        scene, cam = sponza_like_scene(target_tris=cs.TARGET_TRIS, device=dev)
+        scene, cam = sponza_like_scene(target_tris=cs.TARGET_TRIS,
+                                       build_bvh=False, device=dev)
         scene.bvh = bvh = build_cluster_bvh(scene.mesh, cluster_size=cs.K,
                                             treelet_size=cs.T)
         radix = dataclasses.replace(scene, bvh=build_cluster_bvh(

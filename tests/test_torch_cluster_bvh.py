@@ -79,7 +79,8 @@ def test_sponza_mesh_is_a_copy():
 
 def test_sponza_scene_matches():
     js, jc = jsponza.sponza_like_scene(target_tris=4000, build_bvh=False)
-    ts, tc = tsponza.sponza_like_scene(target_tris=4000, device=CPU)
+    ts, tc = tsponza.sponza_like_scene(target_tris=4000, build_bvh=False,
+                                       device=CPU)
     for f in ("vertices", "faces", "geom_ids"):
         np.testing.assert_array_equal(getattr(ts.mesh, f).numpy(),
                                       np.asarray(getattr(js.mesh, f)))

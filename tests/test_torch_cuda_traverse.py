@@ -39,7 +39,8 @@ def cuda():
 @pytest.fixture(scope="module")
 def scene(cuda):
     with torch.inference_mode():
-        s, cam = sponza_like_scene(target_tris=20000, device=cuda)
+        s, cam = sponza_like_scene(target_tris=20000, build_bvh=False,
+                                   device=cuda)
         s.bvh = build_cluster_bvh(s.mesh, cluster_size=16, treelet_size=16)
         rng = np.random.default_rng(0)
         n = 20000

@@ -199,7 +199,8 @@ def test_config_reaches_every_launch(tree, monkeypatch):
     kd build (no half boxes), neither on a radix tree (JAX _fanout_for,
     _half_skip_for)."""
     K, T = {"kd_K16": (16, 16), "kd_K8": (8, 16), "radix_K16": (16, 0)}[tree]
-    scene, cam = sponza_like_scene(target_tris=4000, device=CPU)
+    scene, cam = sponza_like_scene(target_tris=4000, build_bvh=False,
+                                   device=CPU)
     scene.bvh = build_cluster_bvh(scene.mesh, cluster_size=K, treelet_size=T)
     params = KernelParams.create(scene, num_bounces=3, epsilon=1e-3,
                                  bg_color=(0.2, 0.3, 0.5, 1.0),

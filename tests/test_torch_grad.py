@@ -168,7 +168,8 @@ def _jax_step(x, y):
 
 
 def _port_scene(treelet_size=16):
-    ts, tcam = sponza_like_scene(target_tris=4000, device=CPU)
+    ts, tcam = sponza_like_scene(target_tris=4000, build_bvh=False,
+                                 device=CPU)
     ts.bvh = build_cluster_bvh(ts.mesh, cluster_size=8,
                                treelet_size=treelet_size)
     return KernelParams.create(ts, **KW), tcam

@@ -231,7 +231,8 @@ def test_filtered_render_on_radix_tree_matches_jax():
     js, jcam = j_sponza(target_tris=2000, build_bvh=False)
     js = dataclasses.replace(js, bvh=jbuild(js.mesh, cluster_size=8,
                                             treelet_size=0))
-    ts, tcam = sponza_like_scene(target_tris=2000, device=CPU)
+    ts, tcam = sponza_like_scene(target_tris=2000, build_bvh=False,
+                                 device=CPU)
     ts.bvh = build_cluster_bvh(ts.mesh, cluster_size=8, treelet_size=0)
     jrt = jrender.render(js, jcam, W, H, hit_filter=flt)
     trt = trender.render(ts, tcam, W, H, hit_filter=flt)

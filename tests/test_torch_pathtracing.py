@@ -49,7 +49,8 @@ def test_slice_render_pixels_matches_jax(monkeypatch):
     js, jcam = j_sponza(target_tris=4000, build_bvh=False)
     js = dataclasses.replace(js, bvh=jbuild(js.mesh, cluster_size=8,
                                             treelet_size=16))
-    ts, tcam = sponza_like_scene(target_tris=4000, device=CPU)
+    ts, tcam = sponza_like_scene(target_tris=4000, build_bvh=False,
+                                 device=CPU)
     ts.bvh = build_cluster_bvh(ts.mesh, cluster_size=8, treelet_size=16)
     assert (ts.bvh.num_clusters, ts.bvh.num_treelets) == (1024, 64)
     kw = dict(num_bounces=3, epsilon=1e-3, bg_color=(0.2, 0.3, 0.5, 1.0),

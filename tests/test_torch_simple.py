@@ -83,7 +83,8 @@ def test_simple_on_radix_tree_matches_jax(monkeypatch):
     js, jcam = j_sponza(target_tris=2000, build_bvh=False)
     js = dataclasses.replace(js, bvh=jbuild(js.mesh, cluster_size=8,
                                             treelet_size=0))
-    ts, tcam = sponza_like_scene(target_tris=2000, device=CPU)
+    ts, tcam = sponza_like_scene(target_tris=2000, build_bvh=False,
+                                 device=CPU)
     ts.bvh = build_cluster_bvh(ts.mesh, cluster_size=8, treelet_size=0)
     assert not ts.bvh.heap and ts.bvh.num_clusters == js.bvh.num_clusters
     jrt = jrender.render(js, jcam, W, H, algo="simple")

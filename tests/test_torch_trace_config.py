@@ -63,7 +63,8 @@ def _scenes(K, T):
     js = dataclasses.replace(js, bvh=jax.jit(
         jbuild, static_argnames=("cluster_size", "treelet_size"))(
             js.mesh, cluster_size=K, treelet_size=T))
-    ts, tcam = sponza_like_scene(target_tris=4000, device=CPU)
+    ts, tcam = sponza_like_scene(target_tris=4000, build_bvh=False,
+                                 device=CPU)
     ts.bvh = build_cluster_bvh(ts.mesh, cluster_size=K, treelet_size=T)
     return js, jcam, ts, tcam
 

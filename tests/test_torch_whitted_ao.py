@@ -158,7 +158,8 @@ def radix_scenes():
     js, jcam = j_sponza(target_tris=2000, build_bvh=False)
     js = dataclasses.replace(js, bvh=jbuild(js.mesh, cluster_size=8,
                                             treelet_size=0))
-    ts, tcam = sponza_like_scene(target_tris=2000, device=CPU)
+    ts, tcam = sponza_like_scene(target_tris=2000, build_bvh=False,
+                                 device=CPU)
     ts.bvh = build_cluster_bvh(ts.mesh, cluster_size=8, treelet_size=0)
     assert not ts.bvh.heap and ts.bvh.num_clusters == js.bvh.num_clusters
     return js, jcam, ts, tcam

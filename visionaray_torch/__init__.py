@@ -8,8 +8,9 @@ imports torch and numpy only.
 Entry points take a ``device`` argument that defaults to CUDA and raise when
 no GPU is present; tests pass ``device="cpu"``.  The hand-written kernels
 (ClusterBVH traversal, ``ops/cuda/traverse_binned.cu`` and
-``traverse_coherent.cu``) are built with nvcc at first use; on CPU tensors
-their wrapper runs the plain PyTorch version instead.
+``traverse_coherent.cu``; the LBVH tier's walk, ``traverse_lbvh.cu``) are
+built with nvcc at first use; on CPU tensors their wrappers run the plain
+PyTorch versions instead.
 """
 
 from visionaray_torch.core.camera import MatrixCamera, Pinhole

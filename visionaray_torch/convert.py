@@ -20,7 +20,7 @@ from visionaray_torch.core.scene import Planes, Scene, Spheres, TriangleMesh
 from visionaray_torch.device import resolve_device
 from visionaray_torch.diff.boundary import EdgeAdjacency
 from visionaray_torch.ops.cluster_bvh import ClusterBVH
-from visionaray_torch.ops.lbvh import tree_depth
+from visionaray_torch.ops.lbvh import BVH, tree_depth
 from visionaray_torch.shading.lights import AreaLights, PointLights, SpotLights
 from visionaray_torch.shading.materials import Materials
 
@@ -92,10 +92,28 @@ def cluster_bvh_from_arrays(d: dict, device="cuda") -> ClusterBVH:
     return dataclasses.replace(bvh, depth=tree_depth(kids[:, 0], kids[:, 1]))
 
 
+def bvh_from_arrays(d: dict, device="cuda") -> BVH:
+    """A flat BVH (either leaf convention) from the JAX ``BVH``'s leaves;
+    its depth is computed here (the JAX BVH carries none)."""
+    dev = resolve_device(device)
+    kw = {k: (None if d.get(k) is None
+              else torch.as_tensor(np.array(d[k]), device=dev))
+          for k in ("node_lo", "node_hi", "left", "right", "parent",
+                    "prim_ids", "leaf_first", "leaf_count")}
+    for k in ("left", "right", "parent", "prim_ids", "leaf_first",
+              "leaf_count"):
+        if kw[k] is not None:
+            kw[k] = kw[k].to(torch.int32).contiguous()
+    return BVH(**kw, max_leaf_size=int(d.get("max_leaf_size", 1)))
+
+
 def scene_from_arrays(mesh=None, materials=None, lights=None, spheres=None,
-                      planes=None, bvh=None, device="cuda") -> Scene:
+                      planes=None, bvh=None, device="cuda",
+                      sphere_bvh=None) -> Scene:
     """A Scene from per-object dicts; ``lights`` is a (kind, dict) pair or
-    a list of them, ``bvh`` a ClusterBVH dict or None."""
+    a list of them, ``bvh`` a ClusterBVH dict (it has ``nodes``), a flat
+    BVH dict (``node_lo``) or None, ``sphere_bvh`` a flat BVH dict or
+    None."""
     dev = resolve_device(device)
     if lights is not None:
         groups = [lights] if isinstance(lights[0], str) else list(lights)
@@ -109,5 +127,8 @@ def scene_from_arrays(mesh=None, materials=None, lights=None, spheres=None,
         materials=(None if materials is None
                    else materials_from_arrays(materials, dev)),
         lights=lights,
-        bvh=None if bvh is None else cluster_bvh_from_arrays(bvh, dev),
+        bvh=(None if bvh is None else bvh_from_arrays(bvh, dev)
+             if "node_lo" in bvh else cluster_bvh_from_arrays(bvh, dev)),
+        sphere_bvh=(None if sphere_bvh is None
+                    else bvh_from_arrays(sphere_bvh, dev)),
         device=dev)

@@ -120,8 +120,11 @@ class Planes:
 
 @dataclass
 class Scene:
-    """Geometry groups + materials + lights.  ``bvh`` is a ClusterBVH or
-    None; textures, volumes and sphere BVHs are not ported yet."""
+    """Geometry groups + materials + lights.  ``bvh`` accelerates the
+    triangle mesh: a ClusterBVH, a flat ``ops.lbvh.BVH`` (LBVH, SAH or
+    SBVH build) or None; ``sphere_bvh`` a flat BVH over the spheres
+    (``ops.traversal.build_sphere_bvh``) or None.  Textures and volumes
+    are not ported yet."""
 
     mesh: Optional[TriangleMesh]
     spheres: Optional[Spheres]
@@ -130,16 +133,19 @@ class Scene:
     lights: Any
     bvh: Any = None
     textures: Any = None
+    sphere_bvh: Any = None
 
     @staticmethod
     def create(mesh=None, spheres=None, planes=None, materials=None,
-               lights=None, bvh=None, device="cuda") -> "Scene":
+               lights=None, bvh=None, device="cuda",
+               sphere_bvh=None) -> "Scene":
         if materials is None:
             materials = Materials.default(device=device)
         if lights is None:
             lights = PointLights.none(device=device)
         return Scene(mesh=mesh, spheres=spheres, planes=planes,
-                     materials=materials, lights=lights, bvh=bvh)
+                     materials=materials, lights=lights, bvh=bvh,
+                     sphere_bvh=sphere_bvh)
 
     @property
     def device(self) -> torch.device:

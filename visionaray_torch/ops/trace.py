@@ -1,13 +1,16 @@
 """Traversal front-end: closest_hit / any_hit / multi_hit over a Scene
-(port of the ClusterBVH, brute-force, sphere and plane branches of
-ops/trace.py), and ``TraceConfig``, the traversal switches that the JAX
-package reads from its environment.
+(port of ops/trace.py), and ``TraceConfig``, the traversal switches that
+the JAX package reads from its environment.
+
+Triangles go through ``scene.bvh``: a ClusterBVH (ops/traverse.py, the
+Pallas tier's kernels) or a flat ``BVH`` (ops/traversal.py, the LBVH tier:
+LBVH, SAH and SBVH builds); without one, a brute-force sweep.  Spheres go
+through ``scene.sphere_bvh`` when set, else a sweep; planes are swept.
 
 ``hit_filter`` is the custom-intersector hook, ``fn(prim_id, t, u, v, hit)
 -> hit``, applied to every candidate triangle hit: on the brute-force tier
-inside the sweep, on the ClusterBVH tier by re-tracing past each rejected
-winner (the kernel has no per-leaf hook).  The LBVH tier is not ported
-yet.
+inside the sweep, on both BVH tiers by re-tracing past each rejected
+winner (no kernel can call a Python callable).
 """
 
 from __future__ import annotations
@@ -77,10 +80,17 @@ class TraceConfig:
 DEFAULT_TRACE = TraceConfig()
 
 
-def _check_unported(bvh):
-    if bvh is not None and not isinstance(bvh, ClusterBVH):
-        raise NotImplementedError("only the ClusterBVH tier is ported "
-                                  "(the LBVH tier is ROADMAP queue 1, item 5)")
+def _is_cluster(bvh) -> bool:
+    """True for a ClusterBVH, False for a flat ``ops.lbvh.BVH`` (the LBVH
+    tier); any other tree has no traversal."""
+    from visionaray_torch.ops.lbvh import BVH
+    if isinstance(bvh, ClusterBVH):
+        return True
+    if isinstance(bvh, BVH):
+        return False
+    raise NotImplementedError(
+        f"no traversal for a {type(bvh).__name__}: scene.bvh must be a "
+        f"ClusterBVH or a flat BVH of the LBVH tier (ops/lbvh.py)")
 
 
 def _best_of(t, hit, max_t=None):
@@ -157,12 +167,23 @@ def intersect_planes_brute(ray: Ray, normal, offset, geom_ids,
     return _brute_one_hit(t, hit, geom_ids, prim_offset)
 
 
-def _other_groups(ray, scene, best, merge):
+def _other_groups(ray, scene, best, merge, max_t, any_hit=False):
+    """Spheres (through ``scene.sphere_bvh`` when set, its search bounded
+    by ``max_t``) and planes, merged into ``best``."""
     offset = scene.num_triangles
     if scene.spheres is not None:
-        best = merge(best, intersect_spheres_brute(
-            ray, scene.spheres.center, scene.spheres.radius,
-            scene.spheres.geom_ids, offset))
+        if scene.sphere_bvh is not None:
+            from visionaray_torch.ops.traversal import (
+                sphere_bvh_any_hit, sphere_bvh_closest_hit,
+            )
+            fn = sphere_bvh_any_hit if any_hit else sphere_bvh_closest_hit
+            hr = fn(ray, scene.sphere_bvh, scene.spheres,
+                    FLT_MAX if max_t is None else max_t, prim_offset=offset)
+        else:
+            hr = intersect_spheres_brute(
+                ray, scene.spheres.center, scene.spheres.radius,
+                scene.spheres.geom_ids, offset)
+        best = merge(best, hr)
         offset += scene.num_spheres
     if scene.planes is not None:
         best = merge(best, intersect_planes_brute(
@@ -174,16 +195,15 @@ def _other_groups(ray, scene, best, merge):
 _FILTER_RETRACE_CAP = 16   # re-traces of a filtered query (multi_hit's N)
 
 
-def _filtered_search(ray: Ray, cbvh, mesh, hit_filter, max_t,
-                     trace: TraceConfig) -> HitRecord:
-    """The detached search of ``_cluster_closest_filtered``: trace, ask
-    the filter about each lane's winner, and re-trace the lanes whose
-    winner it rejected from just past that hit, with that primitive
-    excluded (so coplanar or zero-distance repeats cannot livelock), up to
-    _FILTER_RETRACE_CAP launches.  Resolved lanes carry max_t = -1 and
-    never enter a tile.  One host sync per launch (``any(unresolved)``)."""
-    from visionaray_torch.ops.traverse import cluster_closest_hit
-
+def _filtered_search(ray: Ray, search, hit_filter, max_t) -> HitRecord:
+    """The detached search of ``_closest_filtered``: trace with
+    ``search(ray, max_t) -> HitRecord`` (a BVH tier's unfiltered
+    closest-hit), ask the filter about each lane's winner, and re-trace
+    the lanes whose winner it rejected from just past that hit, with that
+    primitive excluded (so coplanar or zero-distance repeats cannot
+    livelock), up to _FILTER_RETRACE_CAP searches.  Resolved lanes carry
+    max_t = -1 and never traverse.  One host sync per search
+    (``any(unresolved)``)."""
     batch = ray.batch_shape
     dev = ray.dir.device
     so, sd = ray.ori.detach(), ray.dir.detach()
@@ -196,10 +216,8 @@ def _filtered_search(ray: Ray, cbvh, mesh, hit_filter, max_t,
     for _ in range(_FILTER_RETRACE_CAP):
         if not bool(unresolved.any()):
             break
-        hr = cluster_closest_hit(
-            Ray(ori=so + sd * t0[..., None], dir=sd), cbvh, mesh,
-            max_t=torch.where(unresolved, mtb - t0, -1.0),
-            fanout=trace.fanout, half_skip=trace.half_skip)
+        hr = search(Ray(ori=so + sd * t0[..., None], dir=sd),
+                    torch.where(unresolved, mtb - t0, -1.0))
         # a re-hit of the excluded prim: step past it and go on
         same = hr.hit & (hr.prim_id == excl)
         hit = hr.hit & ~same
@@ -234,18 +252,25 @@ def _recompute_hits(ray_ori, ray_dir, mesh, hit, pid):
             torch.where(hit, v, 0.0), pid, take(mesh.geom_ids, pid))
 
 
-def _cluster_closest_filtered(ray: Ray, cbvh, mesh, hit_filter,
-                              max_t=FLT_MAX,
-                              trace: TraceConfig = DEFAULT_TRACE
-                              ) -> HitRecord:
-    """Closest *surviving* hit on the ClusterBVH tier: the detached
-    search of ``_filtered_search``, then t, u, v recomputed at the winning
-    primitive from the original ray, differentiably."""
+def _closest_filtered(ray: Ray, search, mesh, hit_filter,
+                      max_t=FLT_MAX) -> HitRecord:
+    """Closest *surviving* hit on a BVH tier: the detached search of
+    ``_filtered_search``, then t, u, v recomputed at the winning primitive
+    from the original ray, differentiably."""
     with torch.no_grad():
-        best = _filtered_search(ray, cbvh, mesh, hit_filter, max_t, trace)
+        best = _filtered_search(ray, search, hit_filter, max_t)
     t, u, v, pid, gid = _recompute_hits(ray.ori, ray.dir, mesh, best.hit,
                                         best.prim_id)
     return HitRecord(hit=best.hit, t=t, prim_id=pid, geom_id=gid, u=u, v=v)
+
+
+def _cluster_search(cbvh, mesh, trace: TraceConfig):
+    """The ClusterBVH tier's unfiltered closest-hit, as a ``search`` of
+    ``_filtered_search``."""
+    from visionaray_torch.ops.traverse import cluster_closest_hit
+    return lambda r, mt: cluster_closest_hit(
+        r, cbvh, mesh, max_t=mt, fanout=trace.fanout,
+        half_skip=trace.half_skip)
 
 
 def closest_hit(ray: Ray, scene, use_bvh: Optional[bool] = None,
@@ -253,27 +278,34 @@ def closest_hit(ray: Ray, scene, use_bvh: Optional[bool] = None,
                 trace: TraceConfig = DEFAULT_TRACE) -> HitRecord:
     """Closest-hit query over the whole scene.
 
-    Triangles go through the ClusterBVH when ``scene.bvh`` is set
-    (``binned``: the treelet-binned path for incoherent rays), else a
-    brute-force sweep; spheres and planes are swept.  ``hit_filter``: a
-    rejected winner falls through to the next hit (on the ClusterBVH by
-    re-tracing, coherent tiles).  ``max_t``: per-lane bound; lanes with
-    max_t <= 0 are dead and never traverse.  ``trace``: the traversal
-    switches (fanout, half_skip, dir_bits).
+    Triangles go through ``scene.bvh`` when set: a ClusterBVH
+    (``binned``: the treelet-binned path for incoherent rays) or a flat
+    ``BVH`` (the LBVH tier; ``binned`` is ignored, as in JAX), else a
+    brute-force sweep; spheres through ``scene.sphere_bvh`` when set, else
+    swept; planes are swept.  ``hit_filter``: a rejected winner falls
+    through to the next hit (on either BVH tier by re-tracing).
+    ``max_t``: per-lane bound; lanes with max_t <= 0 are dead and never
+    traverse (on the LBVH tier it seeds the search's best t: after the
+    mask below, the answer is JAX's, which masks after the fact).
+    ``trace``: the traversal switches (fanout, half_skip, dir_bits).
     """
-    _check_unported(scene.bvh)
     from visionaray_torch.ops.traverse import (
         binned_closest_hit, cluster_closest_hit,
     )
+    from visionaray_torch.ops.traversal import bvh_closest_hit
     best = HitRecord.none(ray.batch_shape, ray.dir.device)
     if scene.mesh is not None:
         if use_bvh is None:
             use_bvh = scene.bvh is not None
         mt = FLT_MAX if max_t is None else max_t
         kw = dict(fanout=trace.fanout, half_skip=trace.half_skip)
-        if use_bvh and hit_filter is not None:
-            hr = _cluster_closest_filtered(ray, scene.bvh, scene.mesh,
-                                           hit_filter, max_t=mt, trace=trace)
+        if use_bvh and not _is_cluster(scene.bvh):
+            hr = bvh_closest_hit(ray, scene.bvh, scene.mesh, max_t=mt,
+                                 hit_filter=hit_filter)
+        elif use_bvh and hit_filter is not None:
+            hr = _closest_filtered(
+                ray, _cluster_search(scene.bvh, scene.mesh, trace),
+                scene.mesh, hit_filter, max_t=mt)
         elif use_bvh and binned and scene.bvh.treelet_size > 0:
             hr = binned_closest_hit(ray, scene.bvh, scene.mesh, max_t=mt,
                                     dir_bits=trace.dir_bits, **kw)
@@ -286,7 +318,7 @@ def closest_hit(ray: Ray, scene, use_bvh: Optional[bool] = None,
                                            scene.mesh.geom_ids,
                                            hit_filter=hit_filter)
         best = _merge(best, hr)
-    best = _other_groups(ray, scene, best, _merge)
+    best = _other_groups(ray, scene, best, _merge, max_t)
     if max_t is not None:
         keep = best.hit & (best.t < max_t)
         best = HitRecord(
@@ -301,11 +333,12 @@ def any_hit(ray: Ray, scene, max_t, use_bvh: Optional[bool] = None,
             hit_filter=None, binned: bool = False,
             trace: TraceConfig = DEFAULT_TRACE) -> HitRecord:
     """Any-hit (occlusion) query: a hit counts iff hit && 0 <= t < max_t.
-    ``binned`` takes ``trace.shadow_m`` treelet slots.  Through a
-    ``hit_filter`` the ClusterBVH tier answers with the closest surviving
-    hit, so occlusion sees through rejected (e.g. alpha-masked) hits."""
-    _check_unported(scene.bvh)
+    ``binned`` takes ``trace.shadow_m`` treelet slots (ignored on a flat
+    ``BVH``).  Through a ``hit_filter`` either BVH tier answers with the
+    closest surviving hit, so occlusion sees through rejected (e.g.
+    alpha-masked) hits."""
     from visionaray_torch.ops.traverse import binned_any_hit, cluster_any_hit
+    from visionaray_torch.ops.traversal import bvh_any_hit, bvh_closest_hit
     best = HitRecord.none(ray.batch_shape, ray.dir.device)
 
     def merge(dst, src):
@@ -315,10 +348,15 @@ def any_hit(ray: Ray, scene, max_t, use_bvh: Optional[bool] = None,
         if use_bvh is None:
             use_bvh = scene.bvh is not None
         kw = dict(fanout=trace.fanout, half_skip=trace.half_skip)
-        if use_bvh and hit_filter is not None:
-            hr = _cluster_closest_filtered(ray, scene.bvh, scene.mesh,
-                                           hit_filter, max_t=max_t,
-                                           trace=trace)
+        if use_bvh and not _is_cluster(scene.bvh):
+            hr = (bvh_any_hit(ray, scene.bvh, scene.mesh, max_t)
+                  if hit_filter is None else
+                  bvh_closest_hit(ray, scene.bvh, scene.mesh, max_t=max_t,
+                                  hit_filter=hit_filter))
+        elif use_bvh and hit_filter is not None:
+            hr = _closest_filtered(
+                ray, _cluster_search(scene.bvh, scene.mesh, trace),
+                scene.mesh, hit_filter, max_t=max_t)
         elif use_bvh and binned and scene.bvh.treelet_size > 0:
             hr = binned_any_hit(ray, scene.bvh, scene.mesh, max_t,
                                 m=trace.shadow_m, dir_bits=trace.dir_bits,
@@ -331,7 +369,7 @@ def any_hit(ray: Ray, scene, max_t, use_bvh: Optional[bool] = None,
                                            scene.mesh.geom_ids,
                                            hit_filter=hit_filter)
         best = merge(best, hr)
-    return _other_groups(ray, scene, best, merge)
+    return _other_groups(ray, scene, best, merge, max_t, any_hit=True)
 
 
 def _cluster_multi_hit(ray: Ray, cbvh, mesh, k: int):
@@ -381,10 +419,10 @@ def multi_hit(ray: Ray, scene, k: int = 16,
               use_bvh: Optional[bool] = None) -> HitRecord:
     """The k nearest hits per ray, sorted by t: a HitRecord whose fields
     carry a trailing k axis, unused slots hit=False, t=FLT_MAX.  Triangles
-    take k re-traces on the ClusterBVH (when built) or a sweep; spheres and
-    planes are swept; all merged by a stable sort on t (ties: lower prim
-    first, as ``lax.top_k``)."""
-    _check_unported(scene.bvh)
+    take k re-traces on a ClusterBVH, one sorted-k walk on a flat ``BVH``
+    (1:1 leaves only, as in JAX), or a sweep; spheres and planes are
+    swept; all merged by a stable sort on t (ties: lower prim first, as
+    ``lax.top_k``)."""
     groups = []   # (t, hit, prim_id, geom_id, u, v) each (..., M_g)
     o = ray.ori[..., None, :]
     d = ray.dir[..., None, :]
@@ -392,8 +430,13 @@ def multi_hit(ray: Ray, scene, k: int = 16,
     if scene.mesh is not None:
         if use_bvh is None:
             use_bvh = scene.bvh is not None
-        if use_bvh:
+        if use_bvh and _is_cluster(scene.bvh):
             groups.append(_cluster_multi_hit(ray, scene.bvh, scene.mesh, k))
+        elif use_bvh:
+            from visionaray_torch.ops.traversal import bvh_multi_hit
+            rec = bvh_multi_hit(ray, scene.bvh, scene.mesh, k)
+            groups.append((rec.t, rec.hit, rec.prim_id, rec.geom_id, rec.u,
+                           rec.v))
         else:
             v1, e1, e2 = scene.mesh.corners()
             t, u, v, hit = intersect_triangle(o, d, v1, e1, e2)

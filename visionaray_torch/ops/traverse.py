@@ -1,7 +1,10 @@
 """ClusterBVH traversal: the hand-written CUDA kernel, its plain PyTorch
 version, and the glue around them (port of ops/pallas/traverse.py).
 
-Every traversal of the path tracer goes through ``cluster_traverse``:
+Every ClusterBVH traversal goes through ``cluster_traverse`` (the LBVH
+tier's flat trees go through ops/traversal.py's ``bvh_traverse``, whose
+``traverse_lbvh.cu`` is built into the same library and counted in the
+same ``LAUNCHES`` / ``ENTRY_LAUNCHES``):
 
 - on CUDA tensors it launches a kernel of ``ops/cuda/`` and adds one to
   ``LAUNCHES[mode]`` and to ``ENTRY_LAUNCHES[entry point]``:
@@ -88,19 +91,29 @@ TWO_PASS_CAP_FRAC = 0.08  # cluster_closest_hit(two_pass=True) ray cap
 #   radix_any       radix tree from the root, any-hit
 #   c1_closest      single-cluster tree (C == 1), closest-hit
 #   c1_any          single-cluster tree (C == 1), any-hit
+# and the LBVH tier's walk (ops/traversal.py::bvh_traverse), on a flat BVH:
+#   lbvh_closest    triangles, closest-hit (LBVH, SAH or SBVH leaves)
+#   lbvh_any        triangles, any-hit
+#   lbvh_multi      triangles, the k nearest hits
+#   sphere_closest  spheres, closest-hit
+#   sphere_any      spheres, any-hit
 LAUNCHES = {"closest": 0, "any": 0, "binned_closest": 0, "binned_any": 0,
             "radix_closest": 0, "radix_any": 0, "c1_closest": 0,
-            "c1_any": 0}
-# Kernel launches per (mode, fanout, half_skip), keyed by variant_key: which
+            "c1_any": 0, "lbvh_closest": 0, "lbvh_any": 0, "lbvh_multi": 0,
+            "sphere_closest": 0, "sphere_any": 0}
+# Kernel launches per (mode, fanout, half_skip), keyed by variant_key, and
+# per (LBVH mode, leaf form), keyed by traversal.leaf_variant_key: which
 # form of the kernel each launch ran.
 VARIANT_LAUNCHES: dict = {}
 # Kernel launches per C entry point: which kernel each mode ran.
 ENTRY_LAUNCHES = {"vsnray_traverse_binned": 0,
-                  "vsnray_traverse_coherent": 0}
+                  "vsnray_traverse_coherent": 0,
+                  "vsnray_traverse_lbvh": 0}
 
 _CUDA_DIR = Path(__file__).resolve().parent / "cuda"
 SOURCES = (_CUDA_DIR / "traverse_binned.cu",
-           _CUDA_DIR / "traverse_coherent.cu")
+           _CUDA_DIR / "traverse_coherent.cu",
+           _CUDA_DIR / "traverse_lbvh.cu")
 _BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / \
     "visionaray_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3",
@@ -171,15 +184,22 @@ def build_library(sources, out_dir: Path, flags=NVCC_FLAGS) -> Path:
 
 
 def bind_library(lib_path) -> ctypes.CDLL:
-    """Load a built library and declare its entry points' arguments."""
+    """Load a built library and declare the arguments of the entry points
+    it holds (a library built from an older source set, as
+    scripts/torch_kernel_ab.py builds, may lack the newer ones)."""
     lib = ctypes.CDLL(str(lib_path))
     p, i = ctypes.c_void_p, ctypes.c_int
     # pointers (rays, nodes, tris[, roots, splits], 4 outputs, counters),
     # ints, the stream
     for entry, argtypes in (
             ("vsnray_traverse_binned", [p] * 10 + [i] * 9 + [p]),
-            ("vsnray_traverse_coherent", [p] * 8 + [i] * 4 + [p])):
-        fn = getattr(lib, entry)
+            ("vsnray_traverse_coherent", [p] * 8 + [i] * 4 + [p]),
+            # rays, max_t, node tables, prim_ids, leaf tables, 3 prim
+            # tables, 2 outputs, counters; 8 ints; the stream
+            ("vsnray_traverse_lbvh", [p] * 16 + [i] * 8 + [p])):
+        fn = getattr(lib, entry, None)
+        if fn is None:
+            continue
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     return lib

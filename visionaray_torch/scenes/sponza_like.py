@@ -133,10 +133,12 @@ def sponza_like_mesh(target_tris: int = 260_000, seed: int = 7):
     return verts.astype(np.float32), faces.astype(np.int32), gids
 
 
-def sponza_like_scene(target_tris: int = 260_000, seed: int = 7,
-                      device="cuda"):
-    """Returns (scene, camera) for the sponza-class benchmark, without an
-    acceleration structure (build one with ops.cluster_bvh)."""
+def sponza_like_scene(target_tris: int = 260_000, build_bvh: bool = True,
+                      seed: int = 7, device="cuda"):
+    """Returns (scene, camera) for the sponza-class benchmark; with
+    ``build_bvh`` the scene carries an LBVH (``ops.lbvh.build_lbvh``), as
+    the JAX package's does.  Callers that attach a ClusterBVH pass
+    ``build_bvh=False``."""
     dev = resolve_device(device)
     verts, faces, gids = sponza_like_mesh(target_tris, seed)
     mesh = TriangleMesh.create(verts, faces, geom_ids=gids, device=dev)
@@ -157,6 +159,9 @@ def sponza_like_scene(target_tris: int = 260_000, seed: int = 7,
                                 cl=(1.0, 0.95, 0.9), kl=1.0, device=dev)
     scene = Scene.create(mesh=mesh, materials=materials, lights=lights,
                          device=dev)
+    if build_bvh:
+        from visionaray_torch.ops.lbvh import build_lbvh
+        scene.bvh = build_lbvh(mesh)
     cam = Pinhole.create(eye=(2.5, 2.2, 6.0), center=(18.0, 4.0, 6.0),
                          up=(0.0, 1.0, 0.0), fovy=np.deg2rad(55.0),
                          aspect=16.0 / 9.0, device=dev)
