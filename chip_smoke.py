@@ -6,9 +6,10 @@
 Phases, each of which fails the run (non-zero exit) when it fails:
 
 1. Device: the card's name and power limit (nvidia-smi), torch and CUDA
-   versions, and the nvcc build of ops/cuda/traverse_binned.cu and
-   traverse_coherent.cu, one nvcc each, started together (seconds; ptxas'
-   registers, shared memory, stack and spills of the main path's forms).
+   versions, and the nvcc build of ops/cuda/traverse_binned.cu,
+   traverse_coherent.cu, traverse_lbvh.cu and volume_march.cu, one nvcc
+   each, started together (seconds; ptxas' registers, shared memory,
+   stack and spills of the main path's forms).
 2. Kernel vs plain version, per traversal mode, on every launch captured
    from the real 1080p frame (sponza-class scene, 259,656 triangles, K=32,
    T=128): coherent closest-hit and any-hit (traverse_coherent.cu), binned
@@ -118,6 +119,40 @@ Phases, each of which fails the run (non-zero exit) when it fails:
     and under one point light, sphere_bvh = build_sphere_bvh(spheres);
     render(..., algo="whitted") at 1080p (sphere_frame_s): sphere_closest
     and sphere_any launches, held against the plain version.
+17. Textures on phase 14's LBVH scene: per-corner UVs from a planar
+    projection of the vertices (numpy, seed 17), one procedural 256^2
+    image per material (a checker plus noise) packed by
+    TextureAtlas.pack (tex_pack_s), LINEAR filtering, WRAP addressing.
+    (a) The simple frame, render's defaults (tex_simple_frame_s): one
+    lbvh_closest launch; the textured image differs from the untextured
+    one, and an all-white enabled atlas (NEAREST) gives the untextured
+    frame bit for bit.  (b) The 5-bounce NEE frame of phase 14b
+    (tex_frame_s), its launches per mode.  (c) The simple frame under
+    NEAREST, BSPLINE_INTERPOL (its pack with the prefilter timed:
+    tex_prefilter_s), CARDINAL_SPLINE, MIRROR and BORDER.  Every launch
+    mode of (a) and (b) is held against the plain version as in phase 14.
+18. Spectral rendering: (a) cornell_box_spectral() (60 samples) on its
+    LBVH, render(algo="pathtracing") at 1080p with render's defaults
+    (spectral_cornell_frame_s, its peak memory, 10 lbvh_closest launches
+    held against the plain version); to_rgb of 300-sample SPDs on the card
+    against the CPU's (the fold, max relative error <= 1e-5).  (b) Phase
+    3's frame (treelet ClusterBVH, 5-bounce NEE) with the scene lifted to
+    300 samples (spectral_frame_s), rendered in tiles of 524,288 lanes
+    (halved while the peak exceeds 40 GB; the tile used is printed), its
+    peak memory; modes 1, 1b, 1c and 1d held against the plain version on
+    captured launches as in phase 2; the image finite and not black.
+19. Volumes: (a) volume_scene(256) (upstream's 256^3 example, 64 MiB of
+    texels) and (b) multi_volume_scene(128, 3), each rendered with
+    render(..., algo="volume") at 1080p (volume_frame_s,
+    multi_volume_frame_s): exactly one vsnray_volume_march launch
+    (volume_march.cu, one thread per ray).  The launch on the frame's
+    primary rays equals the frame; against the plain version on
+    COMPARE_LANES lanes of its first, middle and last slice, hit and depth
+    equal and colour within 1e-5 (bit-equal or not is printed); its time
+    from CUDA events, its steps from the counting form (sizing its
+    operations bound: FLOP_STEP a step), registers, stack and spills from
+    ptxas; a permuted volume array gives the same image; a texel tensor
+    that requires grad is refused (the kernel has no backward pass).
 
 Output: one line per check, then a JSON line with per-kernel numbers, the
 card's name and power limit, and as the last line
@@ -126,9 +161,10 @@ card's name and power limit, and as the last line
     python3 chip_smoke.py --profile [--profile-table=PATH]
 
 adds a torch.profiler breakdown of one more frame, radix frame, training
-step, Whitted frame, AO frame and boundary step: device time by kernel
-group and the device idle share, and with PATH the full operator tables
-(the step's in PATH.step).
+step, Whitted frame, AO frame, boundary step, the LBVH frames and step,
+the volume frame and the textured NEE frame: device time by kernel group
+and the device idle share, and with PATH the full operator tables (the
+step's in PATH.step).
 """
 
 from __future__ import annotations
@@ -153,15 +189,22 @@ from visionaray_torch.diff.boundary import (
     boundary_image, build_edge_adjacency, silhouette_mask,
 )
 from visionaray_torch.kernels.params import KernelParams
+from visionaray_torch.kernels.volume import Volumes, march_plain, volume_march
 from visionaray_torch.ops import sah
 from visionaray_torch.ops.cluster_bvh import build_cluster_bvh
 from visionaray_torch.ops.lbvh import build_lbvh, sah_cost
 from visionaray_torch.ops.trace import TraceConfig, closest_hit, multi_hit
 from visionaray_torch.sched import step
 from visionaray_torch.sched.render import _pixel_grid, render, render_pixels
+from visionaray_torch.scenes.basic import cornell_box_spectral
 from visionaray_torch.scenes.sponza_like import sponza_like_scene
+from visionaray_torch.scenes.volume_demo import (
+    multi_volume_scene, volume_scene,
+)
 from visionaray_torch.shading.lights import PointLights
 from visionaray_torch.shading.materials import Materials
+from visionaray_torch.shading.spectrum import lift_scene, to_rgb
+from visionaray_torch.shading.texture import AddressMode, Filter, TextureAtlas
 
 WIDTH, HEIGHT, SPP, BOUNCES = 1920, 1080, 1, 5
 TARGET_TRIS, K, T = 260_000, 32, 128
@@ -225,6 +268,30 @@ LBVH_REPLACES = "visionaray_tpu/ops/traversal.py:33"
 LBVH_ENTRY = "vsnray_traverse_lbvh"
 FLOP_SPHERE = 32                 # ops of one sphere test
 SPHERE_COUNT = 65_536
+# phase 17: textures (JAX's TextureAtlas.pack resolution), and the simple
+# frame's other filters and address modes
+TEX_RES = 256
+TEX_VARIANTS = [("nearest", Filter.NEAREST, AddressMode.WRAP),
+                ("bspline_interpol", Filter.BSPLINE_INTERPOL,
+                 AddressMode.WRAP),
+                ("cardinal", Filter.CARDINAL_SPLINE, AddressMode.WRAP),
+                ("mirror", Filter.LINEAR, AddressMode.MIRROR),
+                ("border", Filter.LINEAR, AddressMode.BORDER)]
+# phase 18: the reference's sample count (spectrum.h:34), the first tile
+# tried and the peak memory the tiled frame must stay under
+SPECTRAL_N = 300
+SPECTRAL_TILE = 524_288
+SPECTRAL_PEAK = 40e9
+# phase 19: the volume march, the card form of the jnp volume kernel
+# (visionaray_tpu/kernels/volume.py:115, no pallas_call)
+VOLUME_SOURCE = "visionaray_torch/ops/cuda/volume_march.cu"
+VOLUME_REPLACES = "visionaray_tpu/kernels/volume.py:115"
+VOLUME_ENTRY = "vsnray_volume_march"
+VOLUME_RES = 256                 # upstream's examples/volume: 256^3
+MULTI_RES, MULTI_N = 128, 3
+FLOP_STEP = 100                  # f32 operations of one march step
+VOLUME_ATOL = 1e-5               # colour, kernel vs plain
+RENDER_BG = (0.1, 0.4, 1.0, 1.0)   # render's default bg_color
 
 
 def reject_mod7(pid, t, u, v, hit):
@@ -449,6 +516,9 @@ def form_name(mangled):
         prim, mode, gen, count = (int(g) for g in m.groups())
         return (f"lbvh {tt.PRIMS[prim]} {tt.MODES[mode]} "
                 f"generalized={gen} count={count}")
+    m = re.search(r"volume_kernelILb(\d)E", mangled)
+    if m:
+        return f"volume count={m.group(1)}"
     return mangled
 
 
@@ -460,7 +530,7 @@ def ptxas_lines(log, main_path=False):
     for name, f in ptxas_report(log).items():
         if main_path and ("count=1" in name or (
                 "K=32" not in name and not name.endswith("K=0 heap=0")
-                and not name.startswith("lbvh"))):
+                and not name.startswith(("lbvh", "volume")))):
             continue
         out.append(f"{name}: {f['regs']} registers, {f['smem']} B smem, "
                    f"{f['stack']} B stack, {f['spill']} B spills")
@@ -1552,6 +1622,350 @@ def sphere_phase(dev, entries):
                     sphere_bvh_build_s=build_s, sphere_frame=info)
 
 
+def textured_scene(dev):
+    """Phase 17's scene: sponza_like_scene(260_000) on its default LBVH,
+    per-corner UVs from a planar projection of the vertices (numpy, seed
+    17) and one procedural TEX_RES^2 image per material, a checker plus
+    noise.  Returns (scene without textures, camera, images)."""
+    scene, cam = sponza_like_scene(target_tris=TARGET_TRIS, device=dev)
+    rng = np.random.default_rng(17)
+    verts = scene.mesh.vertices.cpu().numpy()
+    faces = scene.mesh.faces.cpu().numpy()
+    proj = (0.25 * rng.standard_normal((3, 2))).astype(np.float32)
+    uv = (verts @ proj)[faces]                          # (F, 3, 2)
+    yy, xx = np.meshgrid(np.arange(TEX_RES), np.arange(TEX_RES),
+                         indexing="ij")
+    images = {}
+    for m in range(scene.materials.mtype.shape[0]):
+        tiles = 4 + 2 * m
+        check = ((xx * tiles // TEX_RES) + (yy * tiles // TEX_RES)) % 2
+        base = rng.uniform(0.3, 1.0, 3).astype(np.float32)
+        img = np.where(check[..., None] == 0, base, 1.0 - 0.7 * base)
+        img = img + 0.1 * rng.standard_normal(img.shape)
+        images[m] = np.clip(img, 0.0, 1.0).astype(np.float32)
+    mesh = dataclasses.replace(scene.mesh, tex_coords=torch.as_tensor(
+        uv, dtype=torch.float32, device=dev))
+    return dataclasses.replace(scene, mesh=mesh), cam, images
+
+
+def simple_frame(scene, cam):
+    def frame(num):
+        rt = render(scene, cam, WIDTH, HEIGHT)
+        return rt.color.reshape(-1, 4), rt.depth.reshape(-1)
+    return frame
+
+
+def texture_phase(dev, entries):
+    """Phase 17: textures on the LBVH of the 260k scene."""
+    out = {}
+    base, cam, images = textured_scene(dev)
+    M = base.materials.mtype.shape[0]
+
+    def pack(filt, mode, imgs=images):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        atlas = TextureAtlas.pack(imgs, M, resolution=TEX_RES, filter=filt,
+                                  address_mode=mode, device=dev)
+        torch.cuda.synchronize()
+        return atlas, time.perf_counter() - t0
+
+    atlas, out["tex_pack_s"] = pack(Filter.LINEAR, AddressMode.WRAP)
+    scene = dataclasses.replace(base, textures=atlas)
+    log(f"textured scene: tris={scene.num_triangles} materials={M} atlas="
+        f"{tuple(atlas.texels.shape)} LINEAR/WRAP tex_pack_s="
+        f"{out['tex_pack_s']:.3f}")
+
+    # (a) the simple frame, render's defaults
+    good, out["simple"], color, _ = lbvh_frame_phase(
+        "tex simple frame", simple_frame(scene, cam), {"lbvh_closest": 1},
+        entries)
+    out["tex_simple_frame_s"] = out["simple"]["frame_s"]
+    plain = simple_frame(base, cam)(1)[0]
+    white, _ = pack(Filter.NEAREST, AddressMode.WRAP,
+                    {m: np.ones((4, 4, 3), np.float32) for m in range(M)})
+    white_img = simple_frame(dataclasses.replace(base, textures=white),
+                             cam)(1)[0]
+    white_same = torch.equal(white_img, plain)
+    differs = float((color - plain).abs().max())
+    good &= white_same and differs > 0.05
+    log(f"  an all-white enabled atlas (NEAREST) gives the untextured frame "
+        f"bit for bit={white_same}; textured vs untextured max abs="
+        f"{differs:.4f} {'OK' if good else 'FAIL'}")
+    ok = good
+
+    # (b) the 5-bounce NEE frame of phase 14b
+    params = KernelParams.create(
+        scene, num_bounces=BOUNCES, epsilon=1e-3,
+        bg_color=(0.2, 0.3, 0.5, 1.0), ambient_color=(1.0, 1.0, 1.0, 1.0))
+    x, y = swizzled_pixels(dev)
+
+    def nee(num):
+        return render_pixels(params, cam, x, y, WIDTH, HEIGHT, "pathtracing",
+                             SPP, "jittered_blend", num, nee=True)
+
+    good, out["frame"], _, _ = lbvh_frame_phase(
+        "tex nee frame", nee, {"lbvh_closest": BOUNCES,
+                               "lbvh_any": BOUNCES}, entries)
+    ok &= good
+    out["tex_frame_s"] = out["frame"]["frame_s"]
+
+    # (c) the simple frame under the other filters and address modes
+    for name, filt, mode in TEX_VARIANTS:
+        atlas_v, pack_s = pack(filt, mode)
+        if filt == Filter.BSPLINE_INTERPOL:
+            out["tex_prefilter_s"] = pack_s
+        _, launches, _, times, c, _ = timed_frames(
+            simple_frame(dataclasses.replace(base, textures=atlas_v), cam),
+            lbvh=True)
+        frame_s = sum(times) / len(times)
+        good = (bool(torch.isfinite(c).all())
+                and launches["lbvh_closest"] == 1
+                and sum(launches.values()) == 1
+                and float((c - plain).abs().max()) > 0.05)
+        out[f"tex_simple_{name}_frame_s"] = frame_s
+        log(f"tex simple frame {name} ({filt.name}/{mode.name}): frame_s="
+            f"{frame_s:.4f} pack_s={pack_s:.3f} launches="
+            f"{ {k: v for k, v in launches.items() if v} } image_mean="
+            f"{float(c[:, :3].mean()):.6f} {'OK' if good else 'FAIL'}")
+        ok &= good
+    return ok, out, scene, cam, params, x, y
+
+
+def tiled_frame(params, cam, x, y, tile):
+    """The frame of render_pixels over (x, y) in tiles of ``tile`` lanes."""
+    def frame(num):
+        parts = [render_pixels(params, cam, x[i:i + tile], y[i:i + tile],
+                               WIDTH, HEIGHT, "pathtracing", SPP,
+                               "jittered_blend", num, nee=True)
+                 for i in range(0, x.shape[0], tile)]
+        return (torch.cat([p[0] for p in parts]),
+                torch.cat([p[1] for p in parts]))
+    return frame
+
+
+def peak_of(run):
+    """Peak device memory (bytes) of run()."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    out = run()
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated(), out
+
+
+def spectral_phase(scene, cam, params, x, y, rgb_color, dev, entries,
+                   check_modes):
+    """Phase 18: the spectral Cornell box on its LBVH, and the main path's
+    frame with spectral=300 in tiles."""
+    out = {}
+    # (a) cornell_box_spectral() (60 samples), render's pathtracing defaults
+    cs, ccam = cornell_box_spectral(device=dev)
+    cs.bvh = build_lbvh(cs.mesh)
+
+    def cornell(num):
+        rt = render(cs, ccam, WIDTH, HEIGHT, algo="pathtracing",
+                    frame_num=num)
+        return rt.color.reshape(-1, 4), rt.depth.reshape(-1)
+
+    peak, (ok, info, ccolor, _) = peak_of(lambda: lbvh_frame_phase(
+        "spectral cornell frame", cornell, {"lbvh_closest": 10}, entries))
+    non_black = float(ccolor[:, :3].mean()) > 0.01
+    ok &= non_black
+    out.update(spectral_cornell_frame_s=info["frame_s"],
+               spectral_cornell_peak_bytes=peak, spectral_cornell=info)
+    log(f"  spectral cornell: samples={cs.materials.cd.shape[-1]} "
+        f"peak_bytes={peak} non_black={non_black} "
+        f"{'OK' if ok else 'FAIL'}")
+
+    # the fold: to_rgb of an SPD block on the card against the CPU's
+    rng = np.random.default_rng(18)
+    spd = torch.as_tensor(rng.uniform(0, 2, (4096, SPECTRAL_N)),
+                          dtype=torch.float32)
+    fold_card = to_rgb(spd.to(dev)).cpu()
+    fold_cpu = to_rgb(spd)
+    fold_err = float(((fold_card - fold_cpu).abs()
+                      / fold_cpu.abs().clamp_min(1e-3)).max())
+    good = fold_err <= 1e-5
+    log(f"to_rgb fold of {SPECTRAL_N}-sample SPDs, card vs CPU: max rel "
+        f"err={fold_err:.3e} {'OK' if good else 'FAIL'}")
+    ok &= good
+
+    # (b) the main path's frame (treelet ClusterBVH, 5-bounce NEE) with
+    # spectral=300, in tiles: the largest of 524288 / 2^k lanes whose peak
+    # stays under SPECTRAL_PEAK
+    sparams = dataclasses.replace(params, scene=lift_scene(scene,
+                                                           SPECTRAL_N))
+    tile = SPECTRAL_TILE
+    while True:
+        peak, _ = peak_of(lambda: tiled_frame(sparams, cam, x, y, tile)(1))
+        if peak < SPECTRAL_PEAK or tile <= 65536:
+            break
+        log(f"  spectral frame: tile {tile} peaks at {peak} bytes; halving")
+        tile //= 2
+    frame = tiled_frame(sparams, cam, x, y, tile)
+    rec, launches, warm_s, times, color, depth = timed_frames(frame)
+    frame_s = sum(times) / len(times)
+    n_tiles = -(-x.shape[0] // tile)
+    finite = bool(torch.isfinite(color).all())
+    mean = color[:, :3].mean(0)
+    rgb_mean = rgb_color[:, :3].mean(0)
+    good = (finite and float(mean.min()) > 0.01 and peak < SPECTRAL_PEAK
+            and all(launches[k] > 0 for k, _, _ in MODES))
+    log(f"spectral frame 1920x1080 spp=1 bounces=5 nee spectral="
+        f"{SPECTRAL_N}: spectral_frame_s={frame_s:.4f} (frames "
+        f"{', '.join(f'{t:.4f}' for t in times)}) warm_s={warm_s:.3f} "
+        f"tile={tile} tiles={n_tiles} peak_bytes={peak} launches="
+        f"{ {k: v for k, v in launches.items() if v} } entry_launches="
+        f"{rec.entries} image_mean_rgb={[round(float(v), 6) for v in mean]}"
+        f" (RGB frame {[round(float(v), 6) for v in rgb_mean]}) "
+        f"finite={finite} {'OK' if good else 'FAIL'}")
+    ok &= good
+    first = len(entries)
+    ok &= check_modes([(k, f"{name}_spectral{SPECTRAL_N}", row)
+                       for k, name, row in MODES], rec, scene.bvh, launches)
+    for e in entries[first:]:
+        e["phase"] = "spectral frame"
+    del rec
+    out.update(spectral_frame_s=frame_s, spectral_peak_bytes=peak,
+               spectral_tile=tile, spectral_tiles=n_tiles,
+               spectral_launches={k: v for k, v in launches.items() if v},
+               spectral_frame_times=times)
+    return ok, out
+
+
+def volume_bytes(n, vols):
+    """Bytes one march must move: rays in, color, hit and depth out, the
+    boxes, texels and transfer tables read once."""
+    return (n * 6 * 4 + n * (16 + 1 + 4) + 16 + vols.lo.numel() * 8
+            + vols.texels.numel() * 4 + vols.transfer.numel() * 4)
+
+
+def volume_phase(label, scene, cam, dev, entries, ptx):
+    """Phase 19, one scene: render(algo="volume") at 1080p, timed as phase
+    3, exactly one vsnray_volume_march launch; the launch held against the
+    plain version on COMPARE_LANES lanes of its first, middle and last
+    slice; its time (CUDA events), steps (the counting form) and bound; a
+    permuted volume array and a gradient request on the card."""
+    out = {}
+    vols = scene.volumes
+
+    def frame(num):
+        rt = render(scene, cam, WIDTH, HEIGHT, algo="volume")
+        return rt.color.reshape(-1, 4), rt.depth.reshape(-1)
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    frame(1)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    trav.reset_launch_counts()
+    t0 = time.perf_counter()
+    color, depth = frame(2)
+    torch.cuda.synchronize()
+    times = [time.perf_counter() - t0]
+    launches = dict(trav.LAUNCHES)
+    ents = dict(trav.ENTRY_LAUNCHES)
+    for i in range(TIMED_FRAMES - 1):
+        t0 = time.perf_counter()
+        frame(3 + i)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    frame_s = sum(times) / len(times)
+    finite = bool(torch.isfinite(color).all())
+    hit = float((depth > 0).float().mean())
+    ok = (finite and hit > 0.2 and float(color[:, :3].std()) > 0
+          and launches["volume_march"] == 1 and sum(launches.values()) == 1
+          and ents[VOLUME_ENTRY] == 1)
+    log(f"{label} 1920x1080 V={vols.num_volumes} "
+        f"texels={tuple(vols.texels.shape)}: frame_s={frame_s:.4f} (frames "
+        f"{', '.join(f'{t:.4f}' for t in times)}) warm_s={warm_s:.3f} "
+        f"launches={ {k: v for k, v in launches.items() if v} } "
+        f"hit_fraction={hit:.4f} image_mean="
+        f"{float(color[:, :3].mean()):.6f} finite={finite} "
+        f"{'OK' if ok else 'FAIL'}")
+
+    # the launch itself: the frame's primary rays
+    px, py = _pixel_grid(WIDTH, HEIGHT, dev)
+    ray = cam.primary_rays(px, py, WIDTH, HEIGHT)
+    o, d = ray.ori.contiguous(), ray.dir.contiguous()
+    bg = torch.tensor(RENDER_BG, dtype=torch.float32, device=dev)
+    n = o.shape[0]
+    kc, kh, kd = volume_march(o, d, vols, bg)
+    same_frame = torch.equal(kc, color) and torch.equal(
+        torch.where(kh, kd, 0.0), depth)
+    hit_mm = depth_mm = 0
+    max_abs = 0.0
+    for s0 in (0, n // 2 - COMPARE_LANES // 2, n - COMPARE_LANES):
+        sl = slice(s0, s0 + COMPARE_LANES)
+        pc, ph, pd = march_plain(o[sl], d[sl], vols, bg)
+        hit_mm += int((kh[sl] != ph).sum())
+        depth_mm += int((kd[sl] != pd).sum())
+        max_abs = max(max_abs, float((kc[sl] - pc).abs().max()))
+    os_, ds_ = o[:COMPARE_LANES], d[:COMPARE_LANES]
+    plain_ms = cuda_ms(lambda: march_plain(os_, ds_, vols, bg), 1)
+    ms = cuda_ms(lambda: volume_march(o, d, vols, bg), 5)
+    steps = torch.zeros(n, dtype=torch.int32, device=dev)
+    volume_march(o, d, vols, bg, steps=steps)
+    total = int(steps.sum(dtype=torch.int64))
+    t_bytes = volume_bytes(n, vols) / PEAK_BYTES_S * 1e3
+    t_ops = total * FLOP_STEP / PEAK_F32_S * 1e3
+    # permuted volumes: the same image
+    perm = torch.arange(vols.num_volumes - 1, -1, -1, device=dev)
+    pvols = Volumes(vols.lo[perm], vols.hi[perm], vols.texels[perm],
+                    vols.transfer[perm])
+    perm_same = torch.equal(volume_march(o, d, pvols, bg)[0], kc)
+    # a gradient request on the card raises
+    with torch.enable_grad():
+        gvols = dataclasses.replace(vols, texels=vols.texels.clone()
+                                    .requires_grad_())
+        try:
+            volume_march(o[:128], d[:128], gvols, bg)
+            refused = False
+        except NotImplementedError:
+            refused = True
+    # for reference: one trilinear step of the same lanes through
+    # grid_sample (no PyTorch call marches a volume; library_ms is null)
+    grid = (2.0 * (o + d) - 1.0).clamp(-1, 1).reshape(1, 1, 1, n, 3)
+    tex = vols.texels[:1, None]
+    gs_ms = cuda_ms(lambda: torch.nn.functional.grid_sample(
+        tex, grid, mode="bilinear", padding_mode="border",
+        align_corners=False), 5)
+    good = (hit_mm == 0 and depth_mm == 0 and max_abs <= VOLUME_ATOL
+            and same_frame and perm_same and refused)
+    form = ptx.get("volume count=0", {})
+    log(f"kernel volume_march [{label}, volume_march.cu]: compared "
+        f"{3 * COMPARE_LANES} lanes hit_mismatch={hit_mm} depth_mismatch="
+        f"{depth_mm} max_abs_color={max_abs:.3e} "
+        f"({'bit-equal' if max_abs == 0.0 else 'not bit-equal'}) launch "
+        f"equals the frame={same_frame} permuted volumes same image="
+        f"{perm_same} gradient refused={refused} | lanes={n} ms={ms:.4f} "
+        f"plain_ms({COMPARE_LANES} lanes)={plain_ms:.3f} steps={total} "
+        f"(mean {total / n:.1f}, max {int(steps.max())}) bound_ms="
+        f"{max(t_bytes, t_ops):.4f} "
+        f"({'bytes' if t_bytes >= t_ops else 'operations'}) "
+        f"grid_sample_step_ms={gs_ms:.4f} registers={form.get('regs')} "
+        f"stack={form.get('stack')} spills={form.get('spill')} "
+        f"{'OK' if good else 'FAIL'}")
+    ok &= good
+    entries.append({
+        "name": f"volume_march_{label.replace(' ', '_')}", "route": "cuda",
+        "source": VOLUME_SOURCE, "entry": VOLUME_ENTRY,
+        "replaces": VOLUME_REPLACES, "mode_key": "volume_march",
+        "launches": launches["volume_march"], "max_abs_err": max_abs,
+        "ms": ms, "plain_ms": plain_ms, "plain_lanes": COMPARE_LANES,
+        "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "library_ms": None, "grid_sample_step_ms": gs_ms, "lanes": n,
+        "steps": total, "steps_max": int(steps.max()),
+        "flop_step": FLOP_STEP, "hit_mismatch": hit_mm,
+        "depth_mismatch": depth_mm, "registers": form.get("regs"),
+        "stack": form.get("stack"), "spills": form.get("spill"),
+        "launches_training_step": 0, "phase": label})
+    out.update(frame_s=frame_s, frame_times=times, warm_s=warm_s,
+               kernel_ms=ms, plain_ms=plain_ms, steps=total, bound_ms=max(
+                   t_bytes, t_ops), hit_fraction=hit)
+    return ok, out
+
+
 def profile_run(run, label, table_path=None):
     """``--profile``: torch.profiler over one ``run()`` (a frame or a
     training step); prints the device busy share and the top kernels by
@@ -1579,6 +1993,7 @@ def profile_run(run, label, table_path=None):
                       key=dev_us, reverse=True)
     groups = {"traverse_kernel": ("binned_kernel", "coherent_kernel",
                                   "lbvh_kernel"),
+              "volume_kernel": ("volume_kernel",),
               "sort": ("Sort", "sort", "Radix", "radix"),
               "gather_scatter": ("gather", "index", "scatter", "Index"),
               "reduce": ("reduce_kernel",),
@@ -1861,6 +2276,31 @@ def main() -> int:
     flat8 = {k: v for part in slice8.values() for k, v in part.items()
              if k.endswith("_s") or k.endswith("_cost")}
 
+    # ---- phases 17-19: textures, spectral rendering, volumes
+    slice9 = {}
+    with torch.no_grad():
+        good, slice9["textures"], tscene, tcam, tparams, tx, ty = \
+            texture_phase(dev, entries)
+        all_ok &= good
+        good, slice9["spectral"] = spectral_phase(
+            scene, cam, params, x, y, color, dev, entries, check_modes)
+        all_ok &= good
+        ptx = ptxas_report(info["log"])
+        vscene, vcam = volume_scene(VOLUME_RES, device=dev)
+        good, slice9["volume"] = volume_phase("volume", vscene, vcam, dev,
+                                              entries, ptx)
+        all_ok &= good
+        mscene, mcam = multi_volume_scene(MULTI_RES, MULTI_N, device=dev)
+        good, slice9["multi_volume"] = volume_phase(
+            "multi volume", mscene, mcam, dev, entries, ptx)
+        all_ok &= good
+        del mscene
+    flat9 = {k: v for part in ("textures", "spectral")
+             for k, v in slice9[part].items()
+             if k.endswith(("_s", "_bytes", "_tile"))}
+    flat9.update(volume_frame_s=slice9["volume"]["frame_s"],
+                 multi_volume_frame_s=slice9["multi_volume"]["frame_s"])
+
     if "--profile" in sys.argv[1:]:
         table = [a.split("=", 1)[1] for a in sys.argv[1:]
                  if a.startswith("--profile-table=")]
@@ -1894,6 +2334,13 @@ def main() -> int:
         profile_run(lambda: step.loss_and_grads(
             lscene.mesh.vertices, lscene.materials.cd, TIMED_STEPS + 3,
             lparams, lcam, x, y, nee=True), "lbvh training step")
+        with torch.no_grad():
+            profile_run(lambda: render(vscene, vcam, WIDTH, HEIGHT,
+                                       algo="volume"), "volume frame")
+            profile_run(lambda: render_pixels(
+                tparams, tcam, tx, ty, WIDTH, HEIGHT, "pathtracing", SPP,
+                "jittered_blend", TIMED_FRAMES + 2, nee=True),
+                "tex nee frame")
 
     log(json.dumps({"kernels": entries, "frame_s": frame_s,
                     "entry_launches": rec_entries,
@@ -1905,8 +2352,8 @@ def main() -> int:
                     "radix_bvh_build_s": rbuild_s,
                     "frames_1f": frames_1f, "training_step_1f": step_1f,
                     "switch_frames": switch_frames, **slice7,
-                    **flat8, "lbvh_slice": slice8,
-                    "build_s": info["seconds"]}))
+                    **flat8, "lbvh_slice": slice8, **flat9,
+                    "slice9": slice9, "build_s": info["seconds"]}))
     log(f"card: {smi}")
     if not all_ok:
         log("chip_smoke: FAILED")

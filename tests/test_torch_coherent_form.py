@@ -25,7 +25,7 @@ from visionaray_torch.ops.trace import intersect_triangles_brute
 torch.set_num_threads(1)
 KS = (8, 16, 24, 32, 40)   # the unrolled sizes, and two run-time-K ones
 ENTRIES = ("vsnray_traverse_binned", "vsnray_traverse_coherent",
-           "vsnray_traverse_lbvh")
+           "vsnray_traverse_lbvh", "vsnray_volume_march")
 
 
 def _takes(entry, heap, two_pass, fanout, half_skip, K):
@@ -81,21 +81,23 @@ def test_launch_form_entry(K, any_hit):
 
 
 def test_sources_and_counts():
-    """The library is built from the three kernel sources, each holding
+    """The library is built from the four kernel sources, each holding
     one entry point, and no other source sits beside them (radix trees run
     traverse_binned.cu's lane walk; the LBVH tier's flat trees
-    traverse_lbvh.cu); ENTRY_LAUNCHES counts per entry point and resets
-    with the other counts."""
+    traverse_lbvh.cu; the volume renderer volume_march.cu);
+    ENTRY_LAUNCHES counts per entry point and resets with the other
+    counts."""
     names = sorted(p.name for p in trav.SOURCES)
     assert names == ["traverse_binned.cu", "traverse_coherent.cu",
-                     "traverse_lbvh.cu"]
+                     "traverse_lbvh.cu", "volume_march.cu"]
     assert sorted(p.name for p in trav._CUDA_DIR.glob("*.cu")) == names
     for src in trav.SOURCES:
         text = src.read_text()
         assert [e for e in ENTRIES if f'extern "C" int {e}(' in text] == [
             {"traverse_binned.cu": "vsnray_traverse_binned",
              "traverse_coherent.cu": "vsnray_traverse_coherent",
-             "traverse_lbvh.cu": "vsnray_traverse_lbvh"}[src.name]]
+             "traverse_lbvh.cu": "vsnray_traverse_lbvh",
+             "volume_march.cu": "vsnray_volume_march"}[src.name]]
     assert set(trav.ENTRY_LAUNCHES) == set(ENTRIES)
     trav.ENTRY_LAUNCHES["vsnray_traverse_coherent"] += 1
     trav.reset_launch_counts()

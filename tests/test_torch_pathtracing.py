@@ -139,9 +139,12 @@ def test_render_front_end_matches_jax(nee):
 
 def test_unported_options_raise():
     ts, tcam = sponza_like_scene(target_tris=4000, device=CPU)
-    with pytest.raises(NotImplementedError, match="pathtracing"):
+    # the volume kernel and spectral mode are ported; as in JAX (which
+    # asserts), a volume frame needs volumes and spectral mode is a
+    # pathtracing mode
+    with pytest.raises(ValueError, match="Volumes"):
         trender.render(ts, tcam, 4, 4, algo="volume")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="pathtracing"):
         trender.render(ts, tcam, 4, 4, spectral=8)
     with pytest.raises(NotImplementedError, match="LBVH"):
         trender.render(dataclasses.replace(ts, bvh=object()), tcam, 4, 4)

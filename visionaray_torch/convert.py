@@ -19,10 +19,12 @@ from visionaray_torch.core.camera import MatrixCamera, Pinhole
 from visionaray_torch.core.scene import Planes, Scene, Spheres, TriangleMesh
 from visionaray_torch.device import resolve_device
 from visionaray_torch.diff.boundary import EdgeAdjacency
+from visionaray_torch.kernels.volume import Volumes
 from visionaray_torch.ops.cluster_bvh import ClusterBVH
 from visionaray_torch.ops.lbvh import BVH, tree_depth
 from visionaray_torch.shading.lights import AreaLights, PointLights, SpotLights
 from visionaray_torch.shading.materials import Materials
+from visionaray_torch.shading.texture import TextureAtlas
 
 _LIGHT_TYPES = {"PointLights": PointLights, "SpotLights": SpotLights,
                 "AreaLights": AreaLights}
@@ -107,13 +109,26 @@ def bvh_from_arrays(d: dict, device="cuda") -> BVH:
     return BVH(**kw, max_leaf_size=int(d.get("max_leaf_size", 1)))
 
 
+def texture_atlas_from_arrays(d: dict, device="cuda") -> TextureAtlas:
+    """The JAX ``TextureAtlas``: texels, enabled, and its static filter
+    and address mode as ints."""
+    atlas = _build(TextureAtlas, d, resolve_device(device),
+                   static=("filter", "address_mode"))
+    return dataclasses.replace(atlas, filter=int(atlas.filter),
+                               address_mode=int(atlas.address_mode))
+
+
+def volumes_from_arrays(d: dict, device="cuda") -> Volumes:
+    return _build(Volumes, d, resolve_device(device))
+
+
 def scene_from_arrays(mesh=None, materials=None, lights=None, spheres=None,
                       planes=None, bvh=None, device="cuda",
-                      sphere_bvh=None) -> Scene:
+                      sphere_bvh=None, textures=None, volumes=None) -> Scene:
     """A Scene from per-object dicts; ``lights`` is a (kind, dict) pair or
     a list of them, ``bvh`` a ClusterBVH dict (it has ``nodes``), a flat
     BVH dict (``node_lo``) or None, ``sphere_bvh`` a flat BVH dict or
-    None."""
+    None, ``textures`` a TextureAtlas dict, ``volumes`` a Volumes dict."""
     dev = resolve_device(device)
     if lights is not None:
         groups = [lights] if isinstance(lights[0], str) else list(lights)
@@ -131,4 +146,8 @@ def scene_from_arrays(mesh=None, materials=None, lights=None, spheres=None,
              if "node_lo" in bvh else cluster_bvh_from_arrays(bvh, dev)),
         sphere_bvh=(None if sphere_bvh is None
                     else bvh_from_arrays(sphere_bvh, dev)),
+        textures=(None if textures is None
+                  else texture_atlas_from_arrays(textures, dev)),
+        volumes=None if volumes is None else volumes_from_arrays(volumes,
+                                                                 dev),
         device=dev)

@@ -123,8 +123,10 @@ class Scene:
     """Geometry groups + materials + lights.  ``bvh`` accelerates the
     triangle mesh: a ClusterBVH, a flat ``ops.lbvh.BVH`` (LBVH, SAH or
     SBVH build) or None; ``sphere_bvh`` a flat BVH over the spheres
-    (``ops.traversal.build_sphere_bvh``) or None.  Textures and volumes
-    are not ported yet."""
+    (``ops.traversal.build_sphere_bvh``) or None; ``textures`` a
+    ``shading.texture.TextureAtlas`` (one texture per material) or None;
+    ``volumes`` the ``kernels.volume.Volumes`` that ``algo="volume"``
+    marches, or None."""
 
     mesh: Optional[TriangleMesh]
     spheres: Optional[Spheres]
@@ -133,18 +135,20 @@ class Scene:
     lights: Any
     bvh: Any = None
     textures: Any = None
+    volumes: Any = None
     sphere_bvh: Any = None
 
     @staticmethod
     def create(mesh=None, spheres=None, planes=None, materials=None,
                lights=None, bvh=None, device="cuda",
-               sphere_bvh=None) -> "Scene":
+               sphere_bvh=None, textures=None, volumes=None) -> "Scene":
         if materials is None:
             materials = Materials.default(device=device)
         if lights is None:
             lights = PointLights.none(device=device)
         return Scene(mesh=mesh, spheres=spheres, planes=planes,
                      materials=materials, lights=lights, bvh=bvh,
+                     textures=textures, volumes=volumes,
                      sphere_bvh=sphere_bvh)
 
     @property
@@ -164,7 +168,8 @@ class Scene:
         return 0 if self.planes is None else self.planes.num_prims
 
     def bbox(self) -> AABB:
-        """Scene bounds over finite geometry (planes excluded)."""
+        """Scene bounds over finite geometry and volume boxes (planes
+        excluded)."""
         dev = self.device
         lo = torch.full((3,), 3.4e38, dtype=torch.float32, device=dev)
         hi = torch.full((3,), -3.4e38, dtype=torch.float32, device=dev)
@@ -175,4 +180,7 @@ class Scene:
             r = self.spheres.radius[:, None]
             lo = torch.minimum(lo, torch.amin(self.spheres.center - r, dim=0))
             hi = torch.maximum(hi, torch.amax(self.spheres.center + r, dim=0))
+        if self.volumes is not None:
+            lo = torch.minimum(lo, torch.amin(self.volumes.lo, dim=0))
+            hi = torch.maximum(hi, torch.amax(self.volumes.hi, dim=0))
         return AABB(lo, hi)

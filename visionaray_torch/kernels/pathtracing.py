@@ -11,6 +11,11 @@ surface), through the binned path after bounce 0 (``shadow_binned``, else
 coherently), as the JAX package's VSNRAY_SHADOW_REVERSED and
 VSNRAY_SHADOW_BINNED switches do; its traversal fields reach every query.
 
+Spectral mode (``shading/spectrum.py::lift_scene``): the color algebra is
+channel-count agnostic, so the kernel reads the channel count nc from
+``materials.cd``, lifts the ambient with ``from_rgb`` and folds the result
+back through ``to_rgb`` before the alpha channel is added.
+
 With autograd on, each bounce runs under a non-reentrant checkpoint: the
 backward keeps only the bounce's carry and its traversal outputs (a
 ``TraceTape`` per bounce) and recomputes the rest of the body -- gathers,
@@ -33,6 +38,7 @@ from visionaray_torch.ops import traverse
 from visionaray_torch.ops.sampling import Sampler
 from visionaray_torch.ops.trace import any_hit, closest_hit
 from visionaray_torch.shading.lights import AreaLights, light_groups
+from visionaray_torch.shading.spectrum import from_rgb, to_rgb
 from visionaray_torch.shading.surface import get_surface
 
 
@@ -212,6 +218,9 @@ def pathtrace_loop(ray: Ray, sampler: Sampler, *, num_bounces: int,
 
     # paths still alive at loop end terminate to black
     out = acc if nee else torch.where(active[..., None], 0.0, dst)
+    if nc != 3:
+        # fold the spectrum through the CIE observer for display
+        out = to_rgb(out)
     rgba = torch.cat([out, torch.ones_like(out[..., :1])], dim=-1)
     color = torch.where(first_hit[..., None], rgba,
                         torch.as_tensor(bg_color, dtype=torch.float32,
@@ -223,8 +232,9 @@ def pathtracing_kernel(params: KernelParams, ray: Ray, sampler: Sampler,
                        nee: bool = False) -> ResultRecord:
     scene = params.scene
     nc = scene.materials.cd.shape[-1]
+    amb3 = params.ambient_color[:3]
     if nc != 3:
-        raise NotImplementedError("spectral rendering is not ported yet")
+        amb3 = from_rgb(amb3, nc)
     has_treelets = scene.bvh is not None and \
         getattr(scene.bvh, "treelet_size", 0) > 0
     if has_treelets and params.num_bounces > 1:
@@ -236,6 +246,6 @@ def pathtracing_kernel(params: KernelParams, ray: Ray, sampler: Sampler,
     return pathtrace_loop(
         ray, sampler, num_bounces=params.num_bounces, tracer=tracer,
         tracer0=tracer0, lights=scene.lights, nc=nc,
-        amb3=params.ambient_color[:3], bg_color=params.bg_color,
+        amb3=amb3, bg_color=params.bg_color,
         eps=params.epsilon, nee=nee,
         reversed_shadow=params.trace.shadow_reversed)

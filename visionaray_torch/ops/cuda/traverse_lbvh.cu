@@ -46,6 +46,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "nan_minmax.cuh"
+
 namespace {
 
 constexpr int kStackDepth = 64;   // traversal.py STACK_DEPTH
@@ -73,14 +75,6 @@ struct LbvhArgs {
   int* counters;
   int n, num_nodes, num_refs, max_leaf_size, k;
 };
-
-// jnp.minimum / jnp.maximum: NaN if either operand is NaN
-__device__ __forceinline__ float nan_min(float a, float b) {
-  return (isnan(a) || isnan(b)) ? NAN : fminf(a, b);
-}
-__device__ __forceinline__ float nan_max(float a, float b) {
-  return (isnan(a) || isnan(b)) ? NAN : fmaxf(a, b);
-}
 
 struct Lane {
   float ox, oy, oz, dx, dy, dz, ix, iy, iz;

@@ -1,7 +1,8 @@
 """Ray/primitive intersection (port of ops/intersect.py).
 
-Broadcasting re-derivations of the reference's math: Moeller-Trumbore for
-triangles, stable quadratic for spheres, planes.
+Broadcasting re-derivations of the reference's math: the slab test for
+boxes, Moeller-Trumbore for triangles, stable quadratic for spheres,
+planes.
 """
 
 from __future__ import annotations
@@ -9,6 +10,19 @@ from __future__ import annotations
 import torch
 
 from visionaray_torch.core.vecmath import cross, dot
+
+
+def intersect_aabb(ori, inv_dir, lo, hi):
+    """Branchless slab test (reference math/intersect.h:54-70); returns
+    (tnear, tfar, hit = tfar >= tnear), not clipped to t >= 0.  ``inv_dir``
+    is 1/d unclamped, and min/max propagate NaN as jnp's do: a zero
+    direction component with the origin on a box plane gives 0 * inf = NaN,
+    and the box is missed."""
+    t1 = (lo - ori) * inv_dir
+    t2 = (hi - ori) * inv_dir
+    tnear = torch.amax(torch.minimum(t1, t2), dim=-1)
+    tfar = torch.amin(torch.maximum(t1, t2), dim=-1)
+    return tnear, tfar, tfar >= tnear
 
 
 def intersect_triangle(ori, dir, v1, e1, e2):

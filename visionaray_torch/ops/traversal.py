@@ -42,7 +42,9 @@ import torch
 import visionaray_torch.ops.traverse as trav
 from visionaray_torch.core.types import FLT_MAX, HitRecord, Ray
 from visionaray_torch.device import take
-from visionaray_torch.ops.intersect import intersect_sphere, intersect_triangle
+from visionaray_torch.ops.intersect import (
+    intersect_aabb, intersect_sphere, intersect_triangle,
+)
 from visionaray_torch.ops.lbvh import BVH, build_lbvh_from_aabbs
 from visionaray_torch.ops.trace import _closest_filtered, _recompute_hits
 
@@ -189,17 +191,6 @@ def launch(lib, o, d, max_t, bvh: BVH, prim: str, tables, mode: str, k: int,
     return out_t, out_ref
 
 
-def _slab(o, inv, lo, hi):
-    """JAX intersect_aabb: (tnear, tfar, hit), NaN-propagating min/max."""
-    t1 = (lo - o) * inv
-    t2 = (hi - o) * inv
-    tn = torch.minimum(t1, t2)
-    tf = torch.maximum(t1, t2)
-    tnear = torch.maximum(torch.maximum(tn[:, 0], tn[:, 1]), tn[:, 2])
-    tfar = torch.minimum(torch.minimum(tf[:, 0], tf[:, 1]), tf[:, 2])
-    return tnear, tfar, tfar >= tnear
-
-
 def _prim_test(prim, tables, o, d, pid):
     """(t, hit) of lanes o, d against primitives ``pid``."""
     if prim == "triangle":
@@ -289,10 +280,10 @@ def traverse_bvh_plain(o, d, max_t, bvh: BVH, prim: str, tables, mode: str,
         if leaf_base > 0:
             ni = torch.clamp_max(node, leaf_base - 1)
             lc, rc = take(left, ni), take(right, ni)
-            tn1, tf1, h1 = _slab(o, inv, take(bvh.node_lo, lc),
-                                 take(bvh.node_hi, lc))
-            tn2, tf2, h2 = _slab(o, inv, take(bvh.node_lo, rc),
-                                 take(bvh.node_hi, rc))
+            tn1, tf1, h1 = intersect_aabb(o, inv, take(bvh.node_lo, lc),
+                                          take(bvh.node_hi, lc))
+            tn2, tf2, h2 = intersect_aabb(o, inv, take(bvh.node_lo, rc),
+                                          take(bvh.node_hi, rc))
             bound = bt[:, k - 1] if multi else bt
             b1 = ~is_leaf & h1 & (tn1 < bound) & (tf1 >= 0.0)
             b2 = ~is_leaf & h2 & (tn2 < bound) & (tf2 >= 0.0)

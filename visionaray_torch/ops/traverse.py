@@ -4,7 +4,8 @@ version, and the glue around them (port of ops/pallas/traverse.py).
 Every ClusterBVH traversal goes through ``cluster_traverse`` (the LBVH
 tier's flat trees go through ops/traversal.py's ``bvh_traverse``, whose
 ``traverse_lbvh.cu`` is built into the same library and counted in the
-same ``LAUNCHES`` / ``ENTRY_LAUNCHES``):
+same ``LAUNCHES`` / ``ENTRY_LAUNCHES``, as is the volume renderer's march,
+kernels/volume.py's ``volume_march`` over ``volume_march.cu``):
 
 - on CUDA tensors it launches a kernel of ``ops/cuda/`` and adds one to
   ``LAUNCHES[mode]`` and to ``ENTRY_LAUNCHES[entry point]``:
@@ -97,10 +98,12 @@ TWO_PASS_CAP_FRAC = 0.08  # cluster_closest_hit(two_pass=True) ray cap
 #   lbvh_multi      triangles, the k nearest hits
 #   sphere_closest  spheres, closest-hit
 #   sphere_any      spheres, any-hit
+# and the volume renderer (kernels/volume.py::volume_march):
+#   volume_march    one ray march over every volume of the scene
 LAUNCHES = {"closest": 0, "any": 0, "binned_closest": 0, "binned_any": 0,
             "radix_closest": 0, "radix_any": 0, "c1_closest": 0,
             "c1_any": 0, "lbvh_closest": 0, "lbvh_any": 0, "lbvh_multi": 0,
-            "sphere_closest": 0, "sphere_any": 0}
+            "sphere_closest": 0, "sphere_any": 0, "volume_march": 0}
 # Kernel launches per (mode, fanout, half_skip), keyed by variant_key, and
 # per (LBVH mode, leaf form), keyed by traversal.leaf_variant_key: which
 # form of the kernel each launch ran.
@@ -108,12 +111,14 @@ VARIANT_LAUNCHES: dict = {}
 # Kernel launches per C entry point: which kernel each mode ran.
 ENTRY_LAUNCHES = {"vsnray_traverse_binned": 0,
                   "vsnray_traverse_coherent": 0,
-                  "vsnray_traverse_lbvh": 0}
+                  "vsnray_traverse_lbvh": 0,
+                  "vsnray_volume_march": 0}
 
 _CUDA_DIR = Path(__file__).resolve().parent / "cuda"
 SOURCES = (_CUDA_DIR / "traverse_binned.cu",
            _CUDA_DIR / "traverse_coherent.cu",
-           _CUDA_DIR / "traverse_lbvh.cu")
+           _CUDA_DIR / "traverse_lbvh.cu",
+           _CUDA_DIR / "volume_march.cu")
 _BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / \
     "visionaray_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3",
@@ -188,7 +193,7 @@ def bind_library(lib_path) -> ctypes.CDLL:
     it holds (a library built from an older source set, as
     scripts/torch_kernel_ab.py builds, may lack the newer ones)."""
     lib = ctypes.CDLL(str(lib_path))
-    p, i = ctypes.c_void_p, ctypes.c_int
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     # pointers (rays, nodes, tris[, roots, splits], 4 outputs, counters),
     # ints, the stream
     for entry, argtypes in (
@@ -196,7 +201,10 @@ def bind_library(lib_path) -> ctypes.CDLL:
             ("vsnray_traverse_coherent", [p] * 8 + [i] * 4 + [p]),
             # rays, max_t, node tables, prim_ids, leaf tables, 3 prim
             # tables, 2 outputs, counters; 8 ints; the stream
-            ("vsnray_traverse_lbvh", [p] * 16 + [i] * 8 + [p])):
+            ("vsnray_traverse_lbvh", [p] * 16 + [i] * 8 + [p]),
+            # rays, boxes, texels, transfer, bg, 3 outputs, steps; n, V,
+            # D, H, W, T; step_scale; the stream
+            ("vsnray_volume_march", [p] * 11 + [i] * 6 + [f, p])):
         fn = getattr(lib, entry, None)
         if fn is None:
             continue

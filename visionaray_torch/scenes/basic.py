@@ -1,18 +1,20 @@
 """Basic procedural scenes (port of scenes/basic.py): the mixed-primitive
-scene of config #1, the Cornell box, and a random triangle soup.
-
-``cornell_box_spectral`` is not here: it needs the spectral module
-(shading/spectrum.py), which is not ported yet (ROADMAP queue 1, item 6).
+scene of config #1, the Cornell box and its spectral variant with the
+measured SPDs, and a random triangle soup.
 """
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
+import torch
 
 from visionaray_torch.core.camera import Pinhole
 from visionaray_torch.core.scene import Planes, Scene, Spheres, TriangleMesh
 from visionaray_torch.device import resolve_device
 from visionaray_torch.shading.lights import PointLights
+from visionaray_torch.shading import spectrum as sp
 from visionaray_torch.shading.materials import Materials
 
 
@@ -115,6 +117,29 @@ def cornell_box(light_scale: float = 1.0, device="cuda"):
                          up=(0.0, 1.0, 0.0),
                          fovy=np.deg2rad(40.0), aspect=1.0, device=dev)
     return scene, cam
+
+
+def cornell_box_spectral(n_samples: int = 60, light_scale: float = 1.0,
+                         device="cuda"):
+    """The Cornell box with the measured wall and light SPDs (config #3's
+    spectral variant; reference detail/spd/*): the RGB scene lifted to
+    ``n_samples`` wavelengths, then the Cornell white, red and green
+    reflectance curves and the lamp's SPD (normalized to a peak of 1)
+    swapped in, which an RGB lift cannot express.  Render with
+    algo="pathtracing"; the kernel folds back through the CIE observer.
+    Returns (scene, camera)."""
+    dev = resolve_device(device)
+    scene, cam = cornell_box(light_scale=light_scale, device=dev)
+    scene = sp.lift_scene(scene, n_samples)
+    lam = sp.lambdas(n_samples, dev)
+    cd = torch.stack([sp.cornell_white(lam), sp.cornell_red(lam),
+                      sp.cornell_green(lam), torch.zeros_like(lam)])
+    light_spd = sp.cornell_light(lam)
+    light_spd = light_spd / torch.amax(light_spd)
+    ce = torch.cat([torch.zeros((3, n_samples), dtype=torch.float32,
+                                device=dev), light_spd[None]])
+    mats = dataclasses.replace(scene.materials, cd=cd, ce=ce)
+    return dataclasses.replace(scene, materials=mats), cam
 
 
 def random_triangles(n: int, seed: int = 0, extent: float = 10.0,

@@ -1,5 +1,6 @@
 """Frame rendering front end (port of sched/render.py: the simple,
-Whitted, AO and path-tracing kernels, and the boundary-gradient term).
+Whitted, AO, path-tracing (RGB and spectral) and volume kernels, and the
+boundary-gradient term).
 
 Images are (H, W, 4) with row 0 the bottom scanline.  A render runs under
 torch.inference_mode() unless autograd is on and a tensor of the scene, the
@@ -20,14 +21,15 @@ from visionaray_torch.kernels.ao import ao_kernel
 from visionaray_torch.kernels.params import KernelParams
 from visionaray_torch.kernels.pathtracing import pathtracing_kernel
 from visionaray_torch.kernels.simple import simple_kernel
+from visionaray_torch.kernels.volume import volume_kernel
 from visionaray_torch.kernels.whitted import whitted_kernel
 from visionaray_torch.ops.sampling import Sampler, as_u32, pcg_hash
 from visionaray_torch.shading.lights import light_groups
+from visionaray_torch.shading.spectrum import lift_scene
 
 KERNELS = {"simple": simple_kernel, "whitted": whitted_kernel,
-           "ao": ao_kernel, "pathtracing": pathtracing_kernel}
-# the reference's volume kernel, not ported yet (ROADMAP queue 1, item 6)
-UNPORTED = ("volume",)
+           "ao": ao_kernel, "pathtracing": pathtracing_kernel,
+           "volume": volume_kernel}
 
 SSAA_OFFSETS = {
     1: [(0.0, 0.0)],
@@ -76,8 +78,9 @@ def _pixel_grid(width, height, device):
 def _grad_scope(scene, cam, params=None):
     """inference_mode(), or no change when a gradient is wanted: autograd
     is on and some input tensor requires grad."""
-    objs = [scene.mesh, scene.spheres, scene.planes, scene.materials, cam,
-            params, *light_groups(scene.lights)]
+    objs = [scene.mesh, scene.spheres, scene.planes, scene.materials,
+            scene.textures, scene.volumes, cam, params,
+            *light_groups(scene.lights)]
     wanted = torch.is_grad_enabled() and any(
         isinstance(v, torch.Tensor) and v.requires_grad
         for o in objs if dataclasses.is_dataclass(o)
@@ -87,9 +90,8 @@ def _grad_scope(scene, cam, params=None):
 
 def _check_algo(algo: str):
     if algo not in KERNELS:
-        raise NotImplementedError(
-            f"algo={algo!r}: the ported kernels are {', '.join(KERNELS)} "
-            f"({', '.join(UNPORTED)}: ROADMAP queue 1, item 6)")
+        raise ValueError(f"algo={algo!r}: the kernels are "
+                         f"{', '.join(KERNELS)}")
 
 
 def algo_defaults(algo: str):
@@ -178,13 +180,19 @@ def render(scene, cam, width: int, height: int, algo: str = "simple",
     ``EdgeAdjacency`` adds the zero-valued image whose gradient is the
     primary-visibility boundary term of the mesh edges (and, with spheres
     in the scene, of their silhouettes); ``boundary_opts`` are passed to
-    ``diff/boundary.py::boundary_image``.  The volume kernel, ``spectral``
-    and typed render targets are not ported.
+    ``diff/boundary.py::boundary_image``.
+    ``spectral`` = N > 0 (pathtracing only): the scene lifted to N-sample
+    SPDs (``shading/spectrum.py::lift_scene``) and path traced per
+    wavelength; scenes whose materials already carry SPD channels
+    (``cornell_box_spectral``) run spectrally without it.
+    ``algo="volume"`` marches ``scene.volumes`` (kernels/volume.py).
+    Typed render targets are not ported.
     """
     _check_algo(algo)
     if spectral:
-        raise NotImplementedError("spectral rendering is not ported yet "
-                                  "(ROADMAP queue 1, item 6)")
+        if algo != "pathtracing":
+            raise ValueError("spectral mode is a pathtracing mode")
+        scene = lift_scene(scene, spectral)
     if rt is not None and not isinstance(rt, RenderTarget):
         raise NotImplementedError("only the float RenderTarget is ported")
     d_bounces, d_ambient, d_sampler = algo_defaults(algo)

@@ -209,3 +209,12 @@ class Materials:
     def is_specular(self):
         """Delta-BSDF types (mirror): NEE cannot see light through them."""
         return self.mtype == MaterialType.MIRROR
+
+    def to_spectral(self, n: int = 300) -> "Materials":
+        """Every color field lifted from RGB to an n-sample SPD (the
+        reference built without VSNRAY_SPECTRUM_RGB, spectrum.h:17): the
+        shading algebra is channel-count agnostic, so lifting the fields
+        is the whole switch."""
+        from visionaray_torch.shading.spectrum import from_rgb
+        return dataclasses.replace(
+            self, **{f: from_rgb(getattr(self, f), n) for f in _VEC_FIELDS})

@@ -1,8 +1,10 @@
-"""get_surface: shading data at hit points (port of shading/surface.py,
-without textures)."""
+"""get_surface: shading data at hit points (port of shading/surface.py):
+geometric and shading normals, the texel color at the interpolated UVs
+when the scene has textures, and the per-ray material rows."""
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 from typing import Any
 
@@ -15,6 +17,8 @@ from visionaray_torch.ops.trace import (
     PRIM_PLANE, PRIM_SPHERE, PRIM_TRIANGLE, prim_type_of,
 )
 from visionaray_torch.shading.materials import Materials
+from visionaray_torch.shading.spectrum import from_rgb
+from visionaray_torch.shading.texture import sample_scene_texture
 
 
 @dataclass
@@ -26,9 +30,6 @@ class Surface:
 
 
 def get_surface(hit: HitRecord, ray: Ray, scene) -> Surface:
-    if scene.textures is not None:
-        raise NotImplementedError("textures are not ported yet "
-                                  "(ROADMAP queue 1, item 6)")
     batch = tuple(hit.t.shape)
     dev = hit.t.device
     isect_pos = ray.at(torch.where(hit.hit, hit.t, 1.0))
@@ -53,6 +54,12 @@ def get_surface(hit: HitRecord, ray: Ray, scene) -> Surface:
             w = torch.stack([1.0 - hit.u - hit.v, hit.u, hit.v], dim=-1)
             tri_sn = normalize(torch.sum(cn * w[..., None], dim=-2))
         shade_n = torch.where(is_tri, tri_sn, shade_n)
+        if scene.textures is not None:
+            uvs = take(scene.mesh.tex_coords, tri_idx)
+            w = torch.stack([1.0 - hit.u - hit.v, hit.u, hit.v], dim=-1)
+            uv = torch.sum(uvs * w[..., None], dim=-2)
+            tc = sample_scene_texture(scene.textures, hit.geom_id, uv)
+            tex_color = torch.where(is_tri, tc, tex_color)
 
     if scene.spheres is not None:
         sp_idx = torch.clamp(hit.prim_id - nt, 0, max(ns - 1, 0))
@@ -71,6 +78,14 @@ def get_surface(hit: HitRecord, ray: Ray, scene) -> Surface:
         geom_n = torch.where(is_pl, pl_n, geom_n)
         shade_n = torch.where(is_pl, pl_n, shade_n)
 
+    mats = scene.materials.take(hit.geom_id)
+    if scene.textures is not None:
+        # the reference multiplies tex_color into every diffuse and
+        # emissive term (matte.inl:64,141, plastic.inl:62,182,
+        # emissive.inl:89); folded into the per-ray rows here, it reaches
+        # shade(), sample() and NEE alike
+        nc = mats.cd.shape[-1]
+        tc = tex_color if nc == 3 else from_rgb(tex_color, nc)
+        mats = dataclasses.replace(mats, cd=mats.cd * tc, ce=mats.ce * tc)
     return Surface(geometric_normal=geom_n, shading_normal=shade_n,
-                   tex_color=tex_color,
-                   materials=scene.materials.take(hit.geom_id))
+                   tex_color=tex_color, materials=mats)
