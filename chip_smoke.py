@@ -7,9 +7,9 @@ Phases, each of which fails the run (non-zero exit) when it fails:
 
 1. Device: the card's name and power limit (nvidia-smi), torch and CUDA
    versions, and the nvcc build of ops/cuda/traverse_binned.cu,
-   traverse_coherent.cu, traverse_lbvh.cu and volume_march.cu, one nvcc
-   each, started together (seconds; ptxas' registers, shared memory,
-   stack and spills of the main path's forms).
+   traverse_coherent.cu, traverse_lbvh.cu, volume_march.cu and
+   volume_march_bwd.cu, one nvcc each, started together (seconds; ptxas'
+   registers, shared memory, stack and spills of the main path's forms).
 2. Kernel vs plain version, per traversal mode, on every launch captured
    from the real 1080p frame (sponza-class scene, 259,656 triangles, K=32,
    T=128): coherent closest-hit and any-hit (traverse_coherent.cu), binned
@@ -151,8 +151,40 @@ Phases, each of which fails the run (non-zero exit) when it fails:
     equal and colour within 1e-5 (bit-equal or not is printed); its time
     from CUDA events, its steps from the counting form (sizing its
     operations bound: FLOP_STEP a step), registers, stack and spills from
-    ptxas; a permuted volume array gives the same image; a texel tensor
-    that requires grad is refused (the kernel has no backward pass).
+    ptxas; a permuted volume array gives the same image; rays that
+    require grad are refused on the card (ROADMAP item 6c).
+20. Volume gradients, on phase 19's two scenes: (a) the backward kernel
+    (volume_march_bwd.cu, one launch) against the plain version's
+    autograd on the same COMPARE_LANES-lane subsets as phase 19 (the
+    three taken together), for the loss sum(color * w), w from a numpy
+    seed: texel and transfer gradients within relative L2 GRAD_BWD_REL,
+    cosine >= GRAD_BWD_COS, bg within BG_BWD_RTOL relative; (b) the
+    volume training step at 1080p (volume_step_s, multi_volume_step_s):
+    forward and backward of the MSE between render(algo="volume") and a
+    target rendered with the transfer scaled by 0.8, over texels and
+    transfer, one warm step then TIMED_STEPS timed: launches a step
+    (counts reset just before the counted step), peak memory, gradients
+    finite and non-zero; the backward kernel's time by CUDA events, its
+    bound and ptxas' registers, stack and spills.
+21. The port's CLI, ``visionaray_torch.cli.main(argv)`` at 1920x1080,
+    each run with its wall seconds, its launches (counts reset just
+    before) and its check: (a) builtin:teapot, simple, on its LBVH;
+    (b) builtin:sponza --bvh cluster --algorithm pathtracing --nee (the
+    main path at 260k triangles on a treelet ClusterBVH: modes 1, 1b, 1c,
+    1d); (c) the 260k mesh through save_obj into a temporary directory,
+    then the CLI's simple frame of that OBJ (its LBVH) with the sponza
+    camera from a camera file: the mesh read back equals the one saved
+    and the image equals the in-process render of load_obj_scene;
+    (d) builtin:sponza_x16 --bvh cluster (4,154,496 triangles, radix
+    tree, the run-time-K form), simple, and the same scene --bvh sah;
+    (e) builtin:volume --algorithm volume; (f) (b) with --elastic and a
+    checkpoint: every batch done, none failed, the image equal to the
+    checkpoint's, and an interrupted in-process run of the same frame
+    resumed from its checkpoint bit-identical to it; (g) --dump-bvh of
+    (b)'s tree: its stats line; (h) builtin:sponza --algorithm
+    pathtracing --nee --frames 4 --pixel-format RGBA8 (the LBVH): a
+    progressive RGBA8 TypedRenderTarget, its file equal to the same four
+    frames blended in process into a typed target.
 
 Output: one line per check, then a JSON line with per-kernel numbers, the
 card's name and power limit, and as the last line
@@ -162,29 +194,37 @@ card's name and power limit, and as the last line
 
 adds a torch.profiler breakdown of one more frame, radix frame, training
 step, Whitted frame, AO frame, boundary step, the LBVH frames and step,
-the volume frame and the textured NEE frame: device time by kernel group
-and the device idle share, and with PATH the full operator tables (the
-step's in PATH.step).
+the volume frame, the textured NEE frame and the volume step: device
+time by kernel group and the device idle share, and with PATH the full
+operator tables (the step's in PATH.step).
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import io
 import json
 import re
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
 import torch
 
+import visionaray_torch.kernels.volume as tvol
 import visionaray_torch.ops.traversal as tt
 import visionaray_torch.ops.traverse as trav
+from visionaray_torch import cli
 from visionaray_torch.core.camera import Pinhole
 from visionaray_torch.core.scene import Planes, Scene, Spheres, TriangleMesh
 from visionaray_torch.core.types import Ray
+from visionaray_torch.io.camera_io import load_camera, save_camera
+from visionaray_torch.io.image import load_image, save_png
+from visionaray_torch.io.pixel_format import make_typed_render_target
+from visionaray_torch.io.obj import load_obj_scene, save_obj
 from visionaray_torch.diff.boundary import (
     boundary_image, build_edge_adjacency, silhouette_mask,
 )
@@ -195,6 +235,7 @@ from visionaray_torch.ops.cluster_bvh import build_cluster_bvh
 from visionaray_torch.ops.lbvh import build_lbvh, sah_cost
 from visionaray_torch.ops.trace import TraceConfig, closest_hit, multi_hit
 from visionaray_torch.sched import step
+from visionaray_torch.sched.elastic import render_frame_elastic
 from visionaray_torch.sched.render import _pixel_grid, render, render_pixels
 from visionaray_torch.scenes.basic import cornell_box_spectral
 from visionaray_torch.scenes.sponza_like import sponza_like_scene
@@ -292,6 +333,17 @@ MULTI_RES, MULTI_N = 128, 3
 FLOP_STEP = 100                  # f32 operations of one march step
 VOLUME_ATOL = 1e-5               # colour, kernel vs plain
 RENDER_BG = (0.1, 0.4, 1.0, 1.0)   # render's default bg_color
+# phase 20: the volume march's backward kernel
+VOLUME_BWD_SOURCE = "visionaray_torch/ops/cuda/volume_march_bwd.cu"
+VOLUME_BWD_ENTRY = "vsnray_volume_march_bwd"
+FLOP_STEP_BWD = 160              # f32 operations of one backward step
+GRAD_BWD_REL, GRAD_BWD_COS, BG_BWD_RTOL = 1e-4, 0.9999, 1e-5
+TARGET_TRANSFER_SCALE = 0.8      # the step's target: transfer x 0.8
+# phase 21: the CLI at full width; x16's scene as the repo's config #5
+CLI_SIZE = ["--width", str(WIDTH), "--height", str(HEIGHT)]
+ELASTIC_BATCH = 1 << 16          # the CLI's default --elastic-batch
+ELASTIC_STOP = 5                 # the in-process run stops at this batch
+TYPED_FRAMES = 4
 
 
 def reject_mod7(pid, t, u, v, hit):
@@ -519,6 +571,8 @@ def form_name(mangled):
     m = re.search(r"volume_kernelILb(\d)E", mangled)
     if m:
         return f"volume count={m.group(1)}"
+    if "volume_bwd_kernel" in mangled:
+        return "volume_bwd"
     return mangled
 
 
@@ -1844,7 +1898,7 @@ def volume_phase(label, scene, cam, dev, entries, ptx):
     3, exactly one vsnray_volume_march launch; the launch held against the
     plain version on COMPARE_LANES lanes of its first, middle and last
     slice; its time (CUDA events), steps (the counting form) and bound; a
-    permuted volume array and a gradient request on the card."""
+    permuted volume array and a gradient to the rays on the card."""
     out = {}
     vols = scene.volumes
 
@@ -1913,15 +1967,14 @@ def volume_phase(label, scene, cam, dev, entries, ptx):
     pvols = Volumes(vols.lo[perm], vols.hi[perm], vols.texels[perm],
                     vols.transfer[perm])
     perm_same = torch.equal(volume_march(o, d, pvols, bg)[0], kc)
-    # a gradient request on the card raises
+    # a gradient to the rays on the card raises (item 6c)
     with torch.enable_grad():
-        gvols = dataclasses.replace(vols, texels=vols.texels.clone()
-                                    .requires_grad_())
         try:
-            volume_march(o[:128], d[:128], gvols, bg)
+            volume_march(o[:128].clone().requires_grad_(), d[:128], vols,
+                         bg)
             refused = False
-        except NotImplementedError:
-            refused = True
+        except NotImplementedError as e:
+            refused = "6c" in str(e)
     # for reference: one trilinear step of the same lanes through
     # grid_sample (no PyTorch call marches a volume; library_ms is null)
     grid = (2.0 * (o + d) - 1.0).clamp(-1, 1).reshape(1, 1, 1, n, 3)
@@ -1937,7 +1990,8 @@ def volume_phase(label, scene, cam, dev, entries, ptx):
         f"{depth_mm} max_abs_color={max_abs:.3e} "
         f"({'bit-equal' if max_abs == 0.0 else 'not bit-equal'}) launch "
         f"equals the frame={same_frame} permuted volumes same image="
-        f"{perm_same} gradient refused={refused} | lanes={n} ms={ms:.4f} "
+        f"{perm_same} ray gradient refused={refused} | lanes={n} "
+        f"ms={ms:.4f} "
         f"plain_ms({COMPARE_LANES} lanes)={plain_ms:.3f} steps={total} "
         f"(mean {total / n:.1f}, max {int(steps.max())}) bound_ms="
         f"{max(t_bytes, t_ops):.4f} "
@@ -1964,6 +2018,352 @@ def volume_phase(label, scene, cam, dev, entries, ptx):
                kernel_ms=ms, plain_ms=plain_ms, steps=total, bound_ms=max(
                    t_bytes, t_ops), hit_fraction=hit)
     return ok, out
+
+
+def volume_bwd_bytes(n, vols):
+    """Bytes the backward must move: rays, dst and dL/dcolor in, the
+    boxes, texels and transfer tables read once, the texel gradient written
+    once and one flush of the transfer gradient a block (16 B an f64
+    entry).  The kernel's per-step texel atomics are its own traffic, not
+    the function's: see volume_atomic_bytes."""
+    blocks = min(-(-n // 128), 2048)
+    return (n * (6 + 4 + 4) * 4 + 16 + vols.lo.numel() * 8
+            + vols.texels.numel() * 4 * 2 + vols.transfer.numel() * 4
+            + blocks * vols.transfer.numel() * 16)
+
+
+def volume_atomic_bytes(steps):
+    """The texel atomics the backward kernel issues: 8 read-modify-writes
+    of 8 B a step (most of them land in L2)."""
+    return steps * 8 * 8
+
+
+def volume_grad_phase(label, scene, cam, dev, entries, ptx):
+    """Phase 20, one scene: the backward kernel against the plain version's
+    autograd on phase 19's lanes, then the volume training step at 1080p,
+    timed, with its launches, memory and the backward kernel's time."""
+    vols = scene.volumes
+    px, py = _pixel_grid(WIDTH, HEIGHT, dev)
+    ray = cam.primary_rays(px, py, WIDTH, HEIGHT)
+    o, d = ray.ori.contiguous(), ray.dir.contiguous()
+    n = o.shape[0]
+    lanes = torch.cat([torch.arange(s0, s0 + COMPARE_LANES, device=dev)
+                       for s0 in (0, n // 2 - COMPARE_LANES // 2,
+                                  n - COMPARE_LANES)])
+    so, sd = o[lanes], d[lanes]
+    w = torch.as_tensor(np.random.default_rng(20).uniform(
+        -1.0, 1.0, (lanes.numel(), 4)).astype(np.float32), device=dev)
+
+    def grads(march):
+        tex = vols.texels.detach().clone().requires_grad_()
+        tr = vols.transfer.detach().clone().requires_grad_()
+        bg = torch.tensor(RENDER_BG, device=dev, requires_grad=True)
+        with torch.enable_grad():
+            color, _, _ = march(so, sd, dataclasses.replace(
+                vols, texels=tex, transfer=tr), bg)
+            (color * w).sum().backward()
+        torch.cuda.synchronize()
+        return tex.grad, tr.grad, bg.grad
+
+    trav.reset_launch_counts()
+    kt, ktr, kbg = grads(volume_march)
+    cmp_launches = (trav.LAUNCHES["volume_march"],
+                    trav.LAUNCHES["volume_march_bwd"])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pt, ptr, pbg = grads(march_plain)
+    plain_s = time.perf_counter() - t0
+    tex_rel, tex_cos = grad_stats(kt, pt)
+    tr_rel, tr_cos = grad_stats(ktr, ptr)
+    bg_rel = float((kbg - pbg).abs().max() / pbg.abs().max())
+    max_abs = max(float((kt - pt).abs().max()), float((ktr - ptr).abs().max()),
+                  float((kbg - pbg).abs().max()))
+    good = (cmp_launches == (1, 1) and tex_rel <= GRAD_BWD_REL
+            and tr_rel <= GRAD_BWD_REL and tex_cos >= GRAD_BWD_COS
+            and tr_cos >= GRAD_BWD_COS and bg_rel <= BG_BWD_RTOL
+            and float(pt.abs().max()) > 0 and float(ptr.abs().max()) > 0)
+    log(f"volume gradients [{label}] kernel vs plain autograd on "
+        f"{lanes.numel()} lanes (launches fwd/bwd {cmp_launches}): texels "
+        f"rel_l2={tex_rel:.3e} cos={tex_cos:.8f}; transfer rel_l2="
+        f"{tr_rel:.3e} cos={tr_cos:.8f}; bg max_rel={bg_rel:.3e}; "
+        f"max_abs={max_abs:.3e}; plain fwd+bwd {plain_s:.3f} s "
+        f"{'OK' if good else 'FAIL'}")
+
+    # the volume training step at full width
+    with torch.no_grad():
+        target = render(dataclasses.replace(scene, volumes=dataclasses.replace(
+            vols, transfer=vols.transfer * TARGET_TRANSFER_SCALE)), cam,
+            WIDTH, HEIGHT, algo="volume").color
+
+    def vstep():
+        tex = vols.texels.detach().clone().requires_grad_()
+        tr = vols.transfer.detach().clone().requires_grad_()
+        gscene = dataclasses.replace(scene, volumes=dataclasses.replace(
+            vols, texels=tex, transfer=tr))
+        with torch.enable_grad():
+            color = render(gscene, cam, WIDTH, HEIGHT, algo="volume").color
+            loss = ((color - target) ** 2).mean()
+            g_tex, g_tr = torch.autograd.grad(loss, (tex, tr))
+        torch.cuda.synchronize()
+        return loss, g_tex, g_tr
+
+    t0 = time.perf_counter()
+    vstep()
+    warm_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    base_mem = torch.cuda.memory_allocated()
+    trav.reset_launch_counts()
+    t0 = time.perf_counter()
+    loss, g_tex, g_tr = vstep()
+    times = [time.perf_counter() - t0]
+    step_launches = {k: v for k, v in trav.LAUNCHES.items() if v}
+    peak = torch.cuda.max_memory_allocated()
+    for _ in range(TIMED_STEPS - 1):
+        t0 = time.perf_counter()
+        vstep()
+        times.append(time.perf_counter() - t0)
+    step_s = sum(times) / len(times)
+    finite = all(bool(torch.isfinite(x).all()) for x in (loss, g_tex, g_tr))
+    step_ok = (finite and float(g_tex.abs().max()) > 0
+               and float(g_tr.abs().max()) > 0
+               and step_launches == {"volume_march": 1,
+                                     "volume_march_bwd": 1})
+    # the backward kernel alone on the step's rays: its time and bound
+    bg = torch.tensor(RENDER_BG, device=dev)
+    with torch.no_grad():
+        color, _, _, dst = tvol._launch(o, d, vols, bg, 1.0, save_dst=True)
+        gcolor = (2.0 / color.numel()) * (color - target.reshape(-1, 4))
+        steps = torch.zeros(n, dtype=torch.int32, device=dev)
+        volume_march(o, d, vols, bg, steps=steps)
+        total = int(steps.sum(dtype=torch.int64))
+        bwd_ms = cuda_ms(lambda: tvol.march_backward(o, d, vols, bg, dst,
+                                                     gcolor), 3)
+        bwd_tr_ms = cuda_ms(lambda: tvol.march_backward(
+            o, d, vols, bg, dst, gcolor, texels_grad=False), 3)
+        fwd_ms = cuda_ms(lambda: volume_march(o, d, vols, bg), 3)
+    t_bytes = volume_bwd_bytes(n, vols) / PEAK_BYTES_S * 1e3
+    atomic_bytes = volume_atomic_bytes(total)
+    t_ops = total * FLOP_STEP_BWD / PEAK_F32_S * 1e3
+    bound = max(t_bytes, t_ops)
+    form = ptx.get("volume_bwd", {})
+    ok = good and step_ok
+    log(f"volume step [{label}] {WIDTH}x{HEIGHT} MSE vs transfer x "
+        f"{TARGET_TRANSFER_SCALE} over texels and transfer: step_s="
+        f"{step_s:.4f} (steps {', '.join(f'{t:.4f}' for t in times)}) "
+        f"warm_s={warm_s:.3f} launches={step_launches} peak_bytes={peak} "
+        f"(+{peak - base_mem}) loss={float(loss.detach()):.6e} "
+        f"finite={finite} | "
+        f"backward kernel ms={bwd_ms:.4f} (transfer only {bwd_tr_ms:.4f}, "
+        f"forward {fwd_ms:.4f}) steps={total} bound_ms={bound:.4f} "
+        f"({'bytes' if t_bytes >= t_ops else 'operations'}; bytes "
+        f"{t_bytes:.4f}, operations {t_ops:.4f}) texel_atomic_bytes="
+        f"{atomic_bytes} registers="
+        f"{form.get('regs')} stack={form.get('stack')} spills="
+        f"{form.get('spill')} {'OK' if ok else 'FAIL'}")
+    entries.append({
+        "name": f"volume_march_bwd_{label.replace(' ', '_')}",
+        "route": "cuda", "source": VOLUME_BWD_SOURCE,
+        "entry": VOLUME_BWD_ENTRY, "replaces": VOLUME_REPLACES,
+        "mode_key": "volume_march_bwd",
+        "launches": step_launches.get("volume_march_bwd", 0),
+        "max_abs_err": max_abs, "ms": bwd_ms, "plain_ms": plain_s * 1e3,
+        "plain_lanes": int(lanes.numel()), "bound_ms": bound,
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "library_ms": None, "lanes": n, "steps": total,
+        "flop_step": FLOP_STEP_BWD, "bytes_ms": t_bytes, "ops_ms": t_ops,
+        "texel_atomic_bytes": atomic_bytes,
+        "ms_transfer_only": bwd_tr_ms, "texel_rel_l2": tex_rel,
+        "texel_cos": tex_cos, "transfer_rel_l2": tr_rel,
+        "transfer_cos": tr_cos, "bg_max_rel": bg_rel,
+        "registers": form.get("regs"), "stack": form.get("stack"),
+        "spills": form.get("spill"), "launches_training_step":
+            step_launches.get("volume_march_bwd", 0), "phase": label})
+    return ok, dict(step_s=step_s, step_times=times, warm_s=warm_s,
+                    peak_bytes=peak, bwd_kernel_ms=bwd_ms,
+                    bwd_kernel_transfer_only_ms=bwd_tr_ms,
+                    fwd_kernel_ms=fwd_ms, bound_ms=bound, steps=total,
+                    texel_rel_l2=tex_rel, transfer_rel_l2=tr_rel,
+                    launches=step_launches, plain_s=plain_s), vstep
+
+
+def run_cli(label, argv):
+    """``cli.main(argv + CLI_SIZE)`` with its stdout captured: (ok, lines,
+    wall seconds, launches); counts reset just before."""
+    buf = io.StringIO()
+    torch.cuda.synchronize()
+    trav.reset_launch_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(list(argv) + CLI_SIZE)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: v for k, v in trav.LAUNCHES.items() if v}
+    lines = buf.getvalue().splitlines()
+    for line in lines:
+        log(f"  cli[{label}]: {line[:400]}")
+    return rc == 0, lines, wall, launches
+
+
+def written(lines):
+    """The image file the CLI's last line names."""
+    return lines[-1].rsplit("-> ", 1)[1]
+
+
+def cli_image(path):
+    img = load_image(path, srgb=False)
+    return img[..., :3]
+
+
+def cli_phase(dev, tmp):
+    """Phase 21: the CLI runs, each with its wall seconds and check."""
+    out, ok_all = {}, True
+
+    def record(label, good, wall, launches, **info):
+        nonlocal ok_all
+        ok_all &= bool(good)
+        out[label] = dict(wall_s=wall, launches=launches, ok=bool(good),
+                          **info)
+        log(f"cli {label}: wall_s={wall:.3f} launches={launches} "
+            + " ".join(f"{k}={v}" for k, v in info.items())
+            + f" {'OK' if good else 'FAIL'}")
+
+    def image_ok(path):
+        img = cli_image(path)
+        return bool(np.isfinite(img).all() and img.std() > 0), img
+
+    # (a) the teapot, simple, on its LBVH
+    rc, lines, wall, launches = run_cli(
+        "teapot", ["--scene", "builtin:teapot", "-o", f"{tmp}/teapot.png"])
+    good, _ = image_ok(written(lines)) if rc else (False, None)
+    record("teapot_simple", good and launches == {"lbvh_closest": 1}, wall,
+           launches, file=written(lines))
+
+    # (b) the main path through the CLI
+    main_argv = ["--scene", "builtin:sponza", "--bvh", "cluster",
+                 "--algorithm", "pathtracing", "--nee"]
+    rc, lines, wall, launches = run_cli(
+        "sponza_pt", main_argv + ["-o", f"{tmp}/sponza_pt.png"])
+    good, pt_img = image_ok(written(lines)) if rc else (False, None)
+    modes = all(launches.get(k, 0) > 0 for k, _, _ in MODES)
+    record("sponza_cluster_pt_nee", good and modes, wall, launches,
+           file=written(lines))
+
+    # (c) OBJ round trip of the 260k mesh, its simple frame on its LBVH
+    scene, cam = sponza_like_scene(target_tris=TARGET_TRIS, build_bvh=False,
+                                   device=dev)
+    t0 = time.perf_counter()
+    save_obj(f"{tmp}/sponza.obj", scene.mesh)
+    save_camera(f"{tmp}/sponza.cam", cam)
+    save_s = time.perf_counter() - t0
+    rc, lines, wall, launches = run_cli(
+        "obj", ["--scene", f"{tmp}/sponza.obj", "--camera",
+                f"{tmp}/sponza.cam", "-o", f"{tmp}/obj.png"])
+    t0 = time.perf_counter()
+    oscene = load_obj_scene(f"{tmp}/sponza.obj", device=dev)
+    load_s = time.perf_counter() - t0
+    same_mesh = (torch.equal(oscene.mesh.vertices, scene.mesh.vertices)
+                 and torch.equal(oscene.mesh.faces, scene.mesh.faces))
+    ref = render(oscene, load_camera(f"{tmp}/sponza.cam", device=dev),
+                 WIDTH, HEIGHT)
+    ref_path = save_png(f"{tmp}/obj_ref.png", ref.color[..., :3])
+    same_img = rc and open(written(lines), "rb").read() == \
+        open(ref_path, "rb").read()
+    good = rc and same_mesh and same_img and launches == {"lbvh_closest": 1}
+    record("obj_round_trip", good, wall, launches, save_obj_s=round(save_s, 3),
+           load_obj_scene_s=round(load_s, 3), mesh_equal=same_mesh,
+           image_equal_to_render=bool(same_img),
+           tris=oscene.num_triangles)
+    del oscene, ref
+
+    # (d) sponza x16 on a ClusterBVH (radix, run-time K), then on SAH
+    for bvh, want in (("cluster", "radix_closest"), ("sah", "lbvh_closest")):
+        rc, lines, wall, launches = run_cli(
+            f"x16_{bvh}", ["--scene", "builtin:sponza_x16", "--bvh", bvh,
+                           "-o", f"{tmp}/x16_{bvh}.png"])
+        good, _ = image_ok(written(lines)) if rc else (False, None)
+        record(f"sponza_x16_{bvh}_simple", good and launches == {want: 1},
+               wall, launches, file=written(lines))
+
+    # (e) the volume frame
+    rc, lines, wall, launches = run_cli(
+        "volume", ["--scene", "builtin:volume", "--algorithm", "volume",
+                   "-o", f"{tmp}/volume.png"])
+    good, _ = image_ok(written(lines)) if rc else (False, None)
+    record("volume", good and launches == {"volume_march": 1}, wall,
+           launches)
+
+    # (f) the main path's frame through the elastic scheduler, resumed
+    rc, lines, wall, launches = run_cli(
+        "elastic", main_argv + ["--elastic", "--elastic-checkpoint",
+                                f"{tmp}/ck", "--elastic-batch",
+                                str(ELASTIC_BATCH), "-o",
+                                f"{tmp}/elastic.png"])
+    reps = [json.loads(s) for s in lines if s.startswith('{"elastic')]
+    full = np.load(f"{tmp}/ck.f1.npz")
+    good = rc and len(reps) == 1 and reps[0]["failed"] == 0 and \
+        reps[0]["completed"] == reps[0]["batches"] and bool(full["done"].all())
+    # the same frame in process, interrupted after 5 batches, resumed
+    escene, ecam = sponza_like_scene(target_tris=TARGET_TRIS,
+                                     build_bvh=False, device=dev)
+    escene.bvh = build_cluster_bvh(escene.mesh, treelet_size=T)
+    eparams, sampler = cli.elastic_params(escene, "pathtracing")
+
+    def stop(b, attempt):
+        if b >= ELASTIC_STOP:
+            raise RuntimeError("preempted")
+
+    _, rep1 = render_frame_elastic(eparams, ecam, WIDTH, HEIGHT, nee=True,
+                                   pixel_sampler=sampler, retries=0,
+                                   batch=ELASTIC_BATCH,
+                                   checkpoint_path=f"{tmp}/resume.npz",
+                                   checkpoint_every=1, fault_hook=stop)
+    img2, rep2 = render_frame_elastic(eparams, ecam, WIDTH, HEIGHT,
+                                      nee=True, pixel_sampler=sampler,
+                                      batch=ELASTIC_BATCH,
+                                      checkpoint_path=f"{tmp}/resume.npz")
+    cli_color = full["color"][:WIDTH * HEIGHT].reshape(HEIGHT, WIDTH, 4)
+    resumed_same = bool(np.array_equal(img2, cli_color))
+    good = good and rep1.completed == ELASTIC_STOP and rep1.failed > 0 \
+        and rep2.ok and rep2.resumed == ELASTIC_STOP and resumed_same
+    pt_diff = float(np.abs(cli_image(written(lines)) - pt_img).mean()) \
+        if pt_img is not None and rc else float("nan")
+    record("elastic_resume", good, wall, launches,
+           batches=reps[0]["batches"] if reps else None,
+           interrupted_completed=rep1.completed, resumed=rep2.resumed,
+           resumed_bit_identical=resumed_same,
+           mean_abs_vs_plain_frame=pt_diff)
+    del escene, eparams
+
+    # (g) --dump-bvh of (b)'s tree
+    rc, lines, wall, launches = run_cli(
+        "dump_bvh", main_argv + ["--dump-bvh", f"{tmp}/bvh.png"])
+    stats = [json.loads(s) for s in lines if s.startswith('{"bvh_dump')]
+    good = rc and len(stats) == 1 and stats[0]["nodes"] > 1 and \
+        stats[0].get("num_treelets", 0) > 1
+    record("dump_bvh", good, wall, launches,
+           stats=stats[0] if stats else None)
+
+    # (h) a progressive RGBA8 typed target over 4 frames (LBVH), against
+    # the same frames blended in process into a typed target
+    rc, lines, wall, launches = run_cli(
+        "typed", ["--scene", "builtin:sponza", "--algorithm", "pathtracing",
+                  "--nee", "--frames", str(TYPED_FRAMES), "--pixel-format",
+                  "RGBA8", "--no-srgb", "-o", f"{tmp}/typed.png"])
+    tscene, tcam = sponza_like_scene(target_tris=TARGET_TRIS, device=dev)
+    rt = make_typed_render_target(WIDTH, HEIGHT, "RGBA8", device=dev)
+    for frame in range(1, TYPED_FRAMES + 1):
+        rt = render(tscene, tcam, WIDTH, HEIGHT, algo="pathtracing",
+                    nee=True, frame_num=frame, rt=rt)
+    ref_path = save_png(f"{tmp}/typed_ref.png", rt.as_float()[..., :3],
+                        srgb=False)
+    same = rc and open(written(lines), "rb").read() == \
+        open(ref_path, "rb").read()
+    good, _ = image_ok(written(lines)) if rc else (False, None)
+    good = good and same and rt.color.dtype == torch.uint8 and \
+        launches.get("lbvh_closest", 0) == 10 * TYPED_FRAMES
+    record("typed_rgba8_progressive", good, wall, launches,
+           equal_to_in_process=bool(same))
+    return ok_all, out
 
 
 def profile_run(run, label, table_path=None):
@@ -1993,7 +2393,7 @@ def profile_run(run, label, table_path=None):
                       key=dev_us, reverse=True)
     groups = {"traverse_kernel": ("binned_kernel", "coherent_kernel",
                                   "lbvh_kernel"),
-              "volume_kernel": ("volume_kernel",),
+              "volume_kernel": ("volume_kernel", "volume_bwd_kernel"),
               "sort": ("Sort", "sort", "Radix", "radix"),
               "gather_scatter": ("gather", "index", "scatter", "Index"),
               "reduce": ("reduce_kernel",),
@@ -2301,6 +2701,27 @@ def main() -> int:
     flat9.update(volume_frame_s=slice9["volume"]["frame_s"],
                  multi_volume_frame_s=slice9["multi_volume"]["frame_s"])
 
+    # ---- phase 20: the volume march's backward kernel, the volume step
+    slice10 = {}
+    good, slice10["volume_grad"], vstep = volume_grad_phase(
+        "volume", vscene, vcam, dev, entries, ptx)
+    all_ok &= good
+    mscene, mcam = multi_volume_scene(MULTI_RES, MULTI_N, device=dev)
+    good, slice10["multi_volume_grad"], _ = volume_grad_phase(
+        "multi volume", mscene, mcam, dev, entries, ptx)
+    all_ok &= good
+    del mscene
+
+    # ---- phase 21: the port's CLI at full width
+    with tempfile.TemporaryDirectory() as tmp, torch.no_grad():
+        good, slice10["cli"] = cli_phase(dev, tmp)
+    all_ok &= good
+    flat10 = {"volume_step_s": slice10["volume_grad"]["step_s"],
+              "multi_volume_step_s":
+                  slice10["multi_volume_grad"]["step_s"],
+              **{f"cli_{k}_wall_s": v["wall_s"]
+                 for k, v in slice10["cli"].items()}}
+
     if "--profile" in sys.argv[1:]:
         table = [a.split("=", 1)[1] for a in sys.argv[1:]
                  if a.startswith("--profile-table=")]
@@ -2341,6 +2762,7 @@ def main() -> int:
                 tparams, tcam, tx, ty, WIDTH, HEIGHT, "pathtracing", SPP,
                 "jittered_blend", TIMED_FRAMES + 2, nee=True),
                 "tex nee frame")
+        profile_run(vstep, "volume step")
 
     log(json.dumps({"kernels": entries, "frame_s": frame_s,
                     "entry_launches": rec_entries,
@@ -2353,7 +2775,8 @@ def main() -> int:
                     "frames_1f": frames_1f, "training_step_1f": step_1f,
                     "switch_frames": switch_frames, **slice7,
                     **flat8, "lbvh_slice": slice8, **flat9,
-                    "slice9": slice9, "build_s": info["seconds"]}))
+                    "slice9": slice9, **flat10, "slice10": slice10,
+                    "build_s": info["seconds"]}))
     log(f"card: {smi}")
     if not all_ok:
         log("chip_smoke: FAILED")

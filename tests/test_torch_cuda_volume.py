@@ -3,7 +3,13 @@ PyTorch version (kernels/volume.py::march_plain), on the card: the
 primary rays of volume_scene(32) and multi_volume_scene(32, 3), rays
 inside a box, axis-aligned rays on box planes (the NaN slab case), a long
 thin box at the 512-step cap, a permuted volume array, the counting form,
-the launch counts of render(algo="volume"), and the refusal of a gradient.
+the launch counts of render(algo="volume"); and the backward kernel
+(ops/cuda/volume_march_bwd.cu) against the plain version's autograd, on
+the demo scenes and on tables too large for a block's default 48 KiB of
+shared memory (the transfer gradient alone, no texel atomics), the
+refusal of tables larger than a block may hold, the tie rule of the
+opacity clip at a = 0, and the refusal of gradients to rays and boxes
+(ROADMAP item 6c).
 
 Marked ``cuda``: each test skips itself when torch.cuda.is_available() is
 False (decided inside the fixture, never at import).  On a GPU machine:
@@ -12,7 +18,9 @@ False (decided inside the fixture, never at import).  On a GPU machine:
 
 The kernel is built with -fmad=false and follows the plain version's
 operation order, so hit and depth must be equal and the colour within
-1e-5 (bit-equal is expected).
+1e-5 (bit-equal is expected).  The backward kernel's texel and transfer
+gradients must be within relative L2 1e-4 of the plain version's, the
+background's within 1e-5 relative (its atomic adds reorder the sums).
 """
 
 import dataclasses
@@ -106,8 +114,128 @@ def test_render_launches_once_and_refuses_grad(cuda):
     assert trav.ENTRY_LAUNCHES["vsnray_volume_march"] == 1
     assert sum(trav.LAUNCHES.values()) == 1
     assert bool(torch.isfinite(rt.color).all())
-    texels = scene.volumes.texels.clone().requires_grad_()
-    s = dataclasses.replace(scene, volumes=dataclasses.replace(
-        scene.volumes, texels=texels))
-    with pytest.raises(NotImplementedError, match="6b"):
-        trender.render(s, cam, 8, 8, algo="volume")
+    # rays and boxes have no gradient on the card yet (item 6c)
+    x, y = _pixel_grid(8, 8, cuda)
+    ray = cam.primary_rays(x, y, 8, 8)
+    bg = torch.tensor(BG, device=cuda)
+    vols = scene.volumes
+    for name in ("o", "d", "lo", "hi"):
+        o, d = ray.ori.clone(), ray.dir.clone()
+        v = dataclasses.replace(vols, lo=vols.lo.clone(), hi=vols.hi.clone())
+        target = {"o": o, "d": d, "lo": v.lo, "hi": v.hi}[name]
+        target.requires_grad_()
+        with pytest.raises(NotImplementedError, match="6c"):
+            tvol.volume_march(o, d, v, bg)
+
+
+def _rel(a, b):
+    return float((a.double() - b.double()).norm() / b.double().norm())
+
+
+def _kernel_and_plain_grads(o, d, vols, w):
+    out = []
+    for march in (tvol.volume_march, tvol.march_plain):
+        tex = vols.texels.clone().requires_grad_()
+        tr = vols.transfer.clone().requires_grad_()
+        bg = torch.tensor(BG, device=o.device, requires_grad=True)
+        color, _, _ = march(o, d, dataclasses.replace(
+            vols, texels=tex, transfer=tr), bg)
+        (color * w).sum().backward()
+        out.append((color.detach(), tex.grad, tr.grad, bg.grad))
+    torch.cuda.synchronize()
+    return out
+
+
+@pytest.mark.parametrize("make", [
+    lambda dev: volume_demo.volume_scene(32, device=dev),
+    lambda dev: volume_demo.multi_volume_scene(32, 3, device=dev)],
+    ids=["single", "multi"])
+def test_backward_kernel_matches_plain(cuda, make):
+    scene, cam = make(cuda)
+    x, y = _pixel_grid(48, 48, cuda)
+    ray = cam.primary_rays(x, y, 48, 48)
+    o, d = ray.ori.contiguous(), ray.dir.contiguous()
+    w = torch.tensor(np.random.default_rng(3).uniform(
+        -1.0, 1.0, (o.shape[0], 4)).astype(np.float32), device=cuda)
+    trav.reset_launch_counts()
+    (kc, ktex, ktr, kbg), (pc, ptex, ptr, pbg) = _kernel_and_plain_grads(
+        o, d, scene.volumes, w)
+    assert trav.LAUNCHES["volume_march"] == 1
+    assert trav.LAUNCHES["volume_march_bwd"] == 1
+    assert trav.ENTRY_LAUNCHES["vsnray_volume_march_bwd"] == 1
+    assert float((kc - pc).abs().max()) <= 1e-5
+    assert _rel(ktex, ptex) <= 1e-4
+    assert _rel(ktr, ptr) <= 1e-4
+    torch.testing.assert_close(kbg, pbg, rtol=1e-5, atol=0)
+
+
+def test_backward_tie_rule_at_zero(cuda):
+    """Constant density 0.25 through a transfer whose alpha is 0
+    everywhere: every step's opacity argument is exactly 0, so the alpha
+    entries get half the unclamped gradient (1.6 in all, not 3.2; the CPU
+    test tests/test_torch_volume_grad.py derives it), as the plain
+    version's torch.minimum/maximum clip and jnp.clip give."""
+    texels = np.full((4, 4, 4), 0.25, np.float32)
+    transfer = np.zeros((4, 4), np.float32)
+    transfer[:, :3] = 0.5
+    vols = tvol.Volumes.create([[-1, -1, -1]], [[1, 1, 1]], texels,
+                               transfer, device=cuda)
+    o = torch.tensor([[0.0, 0.0, -3.0]], device=cuda)
+    d = torch.tensor([[0.0, 0.0, 1.0]], device=cuda)
+    w = torch.tensor([[1.0, 0.0, 0.0, 0.0]], device=cuda)
+    (_, _, ktr, _), (_, _, ptr, _) = _kernel_and_plain_grads(o, d, vols, w)
+    torch.testing.assert_close(ktr, ptr, rtol=1e-5, atol=1e-7)
+    assert abs(float(ktr[0, 0, 3] + ktr[0, 1, 3]) - 1.6) <= 1e-5
+
+
+def _long_tables(vols, T):
+    """``vols`` with its transfer tables resampled to T entries."""
+    tr = torch.nn.functional.interpolate(
+        vols.transfer.permute(0, 2, 1), size=T, mode="linear",
+        align_corners=True).permute(0, 2, 1).contiguous()
+    return dataclasses.replace(vols, transfer=tr)
+
+
+def test_backward_large_table_transfer_only(cuda):
+    """Two volumes with 1,024-entry tables: 8,192 f64 entries, 64 KiB of
+    shared memory, above the 48 KiB a block gets unasked.  Only the
+    transfer requires grad, so the kernel takes no texel atomics and the
+    texels get no gradient."""
+    scene, cam = volume_demo.multi_volume_scene(32, 2, device=cuda)
+    vols = _long_tables(scene.volumes, 1024)
+    x, y = _pixel_grid(48, 48, cuda)
+    ray = cam.primary_rays(x, y, 48, 48)
+    o, d = ray.ori.contiguous(), ray.dir.contiguous()
+    w = torch.tensor(np.random.default_rng(5).uniform(
+        -1.0, 1.0, (o.shape[0], 4)).astype(np.float32), device=cuda)
+    bg = torch.tensor(BG, device=cuda)
+    grads = []
+    trav.reset_launch_counts()
+    for march in (tvol.volume_march, tvol.march_plain):
+        tr = vols.transfer.clone().requires_grad_()
+        tex = vols.texels.clone()
+        color, _, _ = march(o, d, dataclasses.replace(
+            vols, texels=tex, transfer=tr), bg)
+        (color * w).sum().backward()
+        assert tex.grad is None
+        grads.append(tr.grad)
+    torch.cuda.synchronize()
+    assert trav.LAUNCHES["volume_march_bwd"] == 1
+    assert float(grads[1].abs().max()) > 0
+    assert _rel(grads[0], grads[1]) <= 1e-4
+
+
+def test_backward_refuses_oversized_tables(cuda):
+    """Eight 1,024-entry tables: 32,768 f64 entries, more than the shared
+    memory a block may opt in to (29,056 on the H100): the launch is
+    refused with an error, never run on a truncated accumulator."""
+    scene, cam = volume_demo.multi_volume_scene(16, 8, device=cuda)
+    vols = _long_tables(scene.volumes, 1024)
+    x, y = _pixel_grid(8, 8, cuda)
+    ray = cam.primary_rays(x, y, 8, 8)
+    tr = vols.transfer.clone().requires_grad_()
+    color, _, _ = tvol.volume_march(
+        ray.ori.contiguous(), ray.dir.contiguous(),
+        dataclasses.replace(vols, transfer=tr), torch.tensor(BG, device=cuda))
+    with pytest.raises(RuntimeError, match="vsnray_volume_march_bwd"):
+        color.sum().backward()

@@ -211,8 +211,10 @@ def test_long_thin_box_reaches_step_cap(monkeypatch):
 
 
 def test_volume_gradients_on_the_plain_version():
-    """The plain march is differentiable with respect to the texels (the
-    CUDA kernel refuses, tests/test_torch_cuda_volume.py)."""
+    """The plain march is differentiable with respect to the texels (on
+    the card the backward kernel computes them,
+    tests/test_torch_cuda_volume.py; tests/test_torch_volume_grad.py holds
+    the plain version's gradients to jax.grad)."""
     ts, _ = tdemo.volume_scene(8, device=CPU)
     vols = ts.volumes
     texels = vols.texels.clone().requires_grad_()

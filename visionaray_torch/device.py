@@ -2,6 +2,7 @@
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -25,3 +26,11 @@ def take(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """
     flat = torch.index_select(x, 0, idx.reshape(-1).long())
     return flat.reshape(tuple(idx.shape) + tuple(x.shape[1:]))
+
+
+def to_numpy(x) -> np.ndarray:
+    """A numpy array of ``x``: a tensor is copied to the host (detached),
+    anything else goes through ``np.asarray``."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)

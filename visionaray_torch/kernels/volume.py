@@ -22,9 +22,19 @@ The march runs through ``volume_march``:
 - on CPU tensors it runs ``march_plain``, the JAX function line for line,
   every one of the 512 masked steps of every rank.
 
-The kernel has no backward pass: ``volume_march`` refuses CUDA inputs that
-require grad (ROADMAP queue 1, item 6b); the plain version is
-differentiable with respect to texels, transfer and rays.
+Gradients: the plain version is differentiable with respect to texels,
+transfer, background and rays.  On the card, where the texels, the
+transfer or the background require grad, the forward also saves each
+ray's composite before the background (it cannot be recovered from the
+colour where bg.a = 1), and the backward is one launch of
+``vsnray_volume_march_bwd`` (``ops/cuda/volume_march_bwd.cu``: each ray
+marched again, texel and transfer gradients by atomic adds; counted in
+``LAUNCHES["volume_march_bwd"]`` and its entry point) and a PyTorch
+reduction for the background.  Atomic float adds make those gradients
+vary in their last bits from run to run.  Gradients with respect to the
+rays and the boxes (``o``, ``d``, ``lo``, ``hi``) have no kernel yet:
+``volume_march`` refuses CUDA inputs that require them (ROADMAP queue 1,
+item 6c).
 """
 
 from __future__ import annotations
@@ -41,6 +51,7 @@ from visionaray_torch.ops.intersect import intersect_aabb
 
 MAX_STEPS = 512
 ENTRY = "vsnray_volume_march"
+ENTRY_BWD = "vsnray_volume_march_bwd"
 _EXIT_EVERY = 16   # march_plain(early_exit=True): steps between checks
 
 
@@ -155,6 +166,8 @@ def march_plain(o, d, volumes: Volumes, bg, step_scale: float = 1.0,
 
     D3 = torch.tensor(texels.shape[1:4], dtype=torch.float32,
                       device=o.device)
+    zero = torch.zeros((), dtype=torch.float32, device=o.device)
+    one = torch.ones((), dtype=torch.float32, device=o.device)
     for r in range(V):
         vi = order[r]
         lo_v = lo[vi]
@@ -174,8 +187,10 @@ def march_plain(o, d, volumes: Volumes, bg, step_scale: float = 1.0,
             uvw = (p - lo_v) / extent
             s = _tex3d_multi(texels, vi, uvw[:, 0], uvw[:, 1], uvw[:, 2])
             c = _tex1d_multi(transfer, vi, s)
-            # opacity correction for the step, then front to back
-            a = torch.clamp(c[:, 3] * dt * D3[0], 0.0, 1.0)
+            # opacity correction for the step, then front to back; clipped
+            # as jnp.clip is (maximum, then minimum), so an argument exactly
+            # on a bound takes half the gradient (torch.clamp takes all)
+            a = torch.minimum(torch.maximum(c[:, 3] * dt * D3[0], zero), one)
             contrib = torch.cat([c[:, :3] * a[:, None], a[:, None]], dim=-1)
             new_dst = dst + (1.0 - dst[:, 3:4]) * contrib
             dst = torch.where(live[:, None], new_dst, dst)
@@ -206,50 +221,140 @@ def _check(o, d, volumes: Volumes, bg):
         raise ValueError("volume_march: 2^31 texels or more")
 
 
+def _launch(o, d, volumes: Volumes, bg, step_scale, steps=None,
+            save_dst=False):
+    """One vsnray_volume_march launch: (color, hit, depth, dst or None)."""
+    n = o.shape[0]
+    color = torch.empty((n, 4), dtype=torch.float32, device=o.device)
+    hit = torch.empty((n,), dtype=torch.bool, device=o.device)
+    depth = torch.empty((n,), dtype=torch.float32, device=o.device)
+    dst = torch.empty((n, 4), dtype=torch.float32, device=o.device) \
+        if save_dst else None
+    if n == 0:
+        return color, hit, depth, dst
+    V, D, H, W = volumes.texels.shape
+    args = [x.detach().contiguous() for x in (
+        o, d, volumes.lo, volumes.hi, volumes.texels, volumes.transfer, bg)]
+    with torch.cuda.device(o.device):
+        stream = torch.cuda.current_stream(o.device).cuda_stream
+        err = trav._library().vsnray_volume_march(
+            *[x.data_ptr() for x in args], color.data_ptr(), hit.data_ptr(),
+            depth.data_ptr(), None if dst is None else dst.data_ptr(),
+            None if steps is None else steps.data_ptr(), n, V, D, H, W,
+            volumes.transfer.shape[1], float(step_scale), stream)
+    if err != 0:
+        raise RuntimeError(f"{ENTRY} launch failed: cudaError {err}")
+    trav.LAUNCHES["volume_march"] += 1
+    trav.ENTRY_LAUNCHES[ENTRY] += 1
+    return color, hit, depth, dst
+
+
+def march_backward(o, d, volumes: Volumes, bg, dst, gcolor,
+                   step_scale: float = 1.0, texels_grad: bool = True,
+                   transfer_grad: bool = True):
+    """(dL/dtexels, dL/dtransfer) of one march from its saved composite
+    ``dst`` (N, 4) and ``gcolor`` = dL/dcolor (N, 4): one launch of
+    vsnray_volume_march_bwd on CUDA tensors (it marches each ray again).
+    A gradient not asked for (``texels_grad``, ``transfer_grad``) is None
+    and costs the kernel none of its atomics.  The kernel sums the transfer
+    gradient in a block's shared memory: it refuses tables of more entries
+    (V * T * 4) than that holds in f64 (29,056 on the H100)."""
+    if o.device.type != "cuda":
+        raise ValueError(f"march_backward: no kernel for {o.device}")
+    n = o.shape[0]
+    gtexels = torch.zeros(tuple(volumes.texels.shape), dtype=torch.float32,
+                          device=o.device) if texels_grad else None
+    # the transfer entries sum millions of terms: the kernel adds in f64
+    gtransfer = torch.zeros(tuple(volumes.transfer.shape),
+                            dtype=torch.float64, device=o.device) \
+        if transfer_grad else None
+    if n > 0:
+        V, D, H, W = volumes.texels.shape
+        args = [x.detach().contiguous() for x in (
+            o, d, volumes.lo, volumes.hi, volumes.texels, volumes.transfer,
+            bg, dst, gcolor.to(torch.float32))]
+        with torch.cuda.device(o.device):
+            stream = torch.cuda.current_stream(o.device).cuda_stream
+            err = trav._library().vsnray_volume_march_bwd(
+                *[x.data_ptr() for x in args],
+                None if gtexels is None else gtexels.data_ptr(),
+                None if gtransfer is None else gtransfer.data_ptr(),
+                n, V, D, H, W, volumes.transfer.shape[1], float(step_scale),
+                stream)
+        if err != 0:
+            raise RuntimeError(
+                f"{ENTRY_BWD} launch failed: cudaError {err} (transfer "
+                f"tables of {volumes.transfer.numel()} entries; a block "
+                f"sums at most its shared memory's worth of f64)")
+        trav.LAUNCHES["volume_march_bwd"] += 1
+        trav.ENTRY_LAUNCHES[ENTRY_BWD] += 1
+    return gtexels, None if gtransfer is None else gtransfer.float()
+
+
+class _KernelMarch(torch.autograd.Function):
+    """The card's march with its backward kernel: gradients with respect
+    to texels, transfer and background; none to rays or boxes."""
+
+    @staticmethod
+    def forward(ctx, o, d, lo, hi, texels, transfer, bg, step_scale):
+        vols = Volumes(lo=lo, hi=hi, texels=texels, transfer=transfer)
+        color, hit, depth, dst = _launch(o, d, vols, bg, step_scale,
+                                         save_dst=True)
+        ctx.save_for_backward(o, d, lo, hi, texels, transfer, bg, dst)
+        ctx.step_scale = step_scale
+        ctx.mark_non_differentiable(hit, depth)
+        return color, hit, depth
+
+    @staticmethod
+    def backward(ctx, gcolor, _ghit, _gdepth):
+        o, d, lo, hi, texels, transfer, bg, dst = ctx.saved_tensors
+        need = ctx.needs_input_grad
+        gtex = gtr = gbg = None
+        if need[4] or need[5]:
+            gtex, gtr = march_backward(
+                o, d, Volumes(lo=lo, hi=hi, texels=texels,
+                              transfer=transfer),
+                bg, dst, gcolor, ctx.step_scale, texels_grad=need[4],
+                transfer_grad=need[5])
+        if need[6]:
+            gbg = ((1.0 - dst[:, 3:4]) * gcolor).sum(dim=0)
+        return None, None, None, None, gtex, gtr, gbg, None
+
+
 def volume_march(o, d, volumes: Volumes, bg, step_scale: float = 1.0,
                  steps=None):
     """(color (N, 4), hit (N,), depth (N,)) of lanes ``o``, ``d`` (N, 3)
     f32.  CUDA tensors launch the kernel (``steps``: an optional (N,) int32
-    tensor it fills with each ray's steps taken); CPU tensors run
+    tensor it fills with each ray's steps taken), and its backward kernel
+    where texels, transfer or bg require grad; CPU tensors run
     ``march_plain``."""
     _check(o, d, volumes, bg)
     if o.device.type == "cpu":
         return march_plain(o, d, volumes, bg, step_scale)
     if o.device.type != "cuda":
         raise ValueError(f"volume_march: no kernel for {o.device}")
-    if torch.is_grad_enabled() and any(
-            x.requires_grad for x in (o, d, volumes.lo, volumes.hi,
-                                      volumes.texels, volumes.transfer, bg)):
+    grad = torch.is_grad_enabled()
+    if grad and any(x.requires_grad
+                    for x in (o, d, volumes.lo, volumes.hi)):
         raise NotImplementedError(
-            "volume_march: the CUDA march has no backward pass yet (ROADMAP "
-            "queue 1, item 6b: texel and transfer gradients); differentiate "
-            "on the CPU, where the plain version runs")
-    n = o.shape[0]
-    color = torch.empty((n, 4), dtype=torch.float32, device=o.device)
-    hit = torch.empty((n,), dtype=torch.bool, device=o.device)
-    depth = torch.empty((n,), dtype=torch.float32, device=o.device)
-    if n == 0:
-        return color, hit, depth
-    if steps is not None and (tuple(steps.shape) != (n,)
+            "volume_march: the CUDA march has no gradient with respect to "
+            "rays or boxes (o, d, lo, hi) yet (ROADMAP queue 1, item 6c); "
+            "texels, transfer and bg are differentiable on the card, all "
+            "of them on the CPU, where the plain version runs")
+    if steps is not None and (tuple(steps.shape) != (o.shape[0],)
                               or steps.dtype != torch.int32
                               or steps.device != o.device):
         raise ValueError("volume_march: steps must be int32 (n,) on the "
                          "rays' device")
-    V, D, H, W = volumes.texels.shape
-    args = [x.contiguous() for x in (o, d, volumes.lo, volumes.hi,
-                                     volumes.texels, volumes.transfer, bg)]
-    with torch.cuda.device(o.device):
-        stream = torch.cuda.current_stream(o.device).cuda_stream
-        err = trav._library().vsnray_volume_march(
-            *[x.data_ptr() for x in args], color.data_ptr(), hit.data_ptr(),
-            depth.data_ptr(), None if steps is None else steps.data_ptr(),
-            n, V, D, H, W, volumes.transfer.shape[1], float(step_scale),
-            stream)
-    if err != 0:
-        raise RuntimeError(f"{ENTRY} launch failed: cudaError {err}")
-    trav.LAUNCHES["volume_march"] += 1
-    trav.ENTRY_LAUNCHES[ENTRY] += 1
-    return color, hit, depth
+    if grad and any(x.requires_grad
+                    for x in (volumes.texels, volumes.transfer, bg)):
+        if steps is not None:
+            raise ValueError("volume_march: the counting form takes no "
+                             "gradient")
+        return _KernelMarch.apply(o, d, volumes.lo, volumes.hi,
+                                  volumes.texels, volumes.transfer, bg,
+                                  float(step_scale))
+    return _launch(o, d, volumes, bg, step_scale, steps)[:3]
 
 
 def volume_kernel(params, ray: Ray, sampler=None, volumes: Volumes = None,

@@ -5,7 +5,8 @@ Every ClusterBVH traversal goes through ``cluster_traverse`` (the LBVH
 tier's flat trees go through ops/traversal.py's ``bvh_traverse``, whose
 ``traverse_lbvh.cu`` is built into the same library and counted in the
 same ``LAUNCHES`` / ``ENTRY_LAUNCHES``, as is the volume renderer's march,
-kernels/volume.py's ``volume_march`` over ``volume_march.cu``):
+kernels/volume.py's ``volume_march`` over ``volume_march.cu`` and its
+backward over ``volume_march_bwd.cu``):
 
 - on CUDA tensors it launches a kernel of ``ops/cuda/`` and adds one to
   ``LAUNCHES[mode]`` and to ``ENTRY_LAUNCHES[entry point]``:
@@ -99,11 +100,13 @@ TWO_PASS_CAP_FRAC = 0.08  # cluster_closest_hit(two_pass=True) ray cap
 #   sphere_closest  spheres, closest-hit
 #   sphere_any      spheres, any-hit
 # and the volume renderer (kernels/volume.py::volume_march):
-#   volume_march    one ray march over every volume of the scene
+#   volume_march      one ray march over every volume of the scene
+#   volume_march_bwd  its backward: texel and transfer gradients
 LAUNCHES = {"closest": 0, "any": 0, "binned_closest": 0, "binned_any": 0,
             "radix_closest": 0, "radix_any": 0, "c1_closest": 0,
             "c1_any": 0, "lbvh_closest": 0, "lbvh_any": 0, "lbvh_multi": 0,
-            "sphere_closest": 0, "sphere_any": 0, "volume_march": 0}
+            "sphere_closest": 0, "sphere_any": 0, "volume_march": 0,
+            "volume_march_bwd": 0}
 # Kernel launches per (mode, fanout, half_skip), keyed by variant_key, and
 # per (LBVH mode, leaf form), keyed by traversal.leaf_variant_key: which
 # form of the kernel each launch ran.
@@ -112,13 +115,15 @@ VARIANT_LAUNCHES: dict = {}
 ENTRY_LAUNCHES = {"vsnray_traverse_binned": 0,
                   "vsnray_traverse_coherent": 0,
                   "vsnray_traverse_lbvh": 0,
-                  "vsnray_volume_march": 0}
+                  "vsnray_volume_march": 0,
+                  "vsnray_volume_march_bwd": 0}
 
 _CUDA_DIR = Path(__file__).resolve().parent / "cuda"
 SOURCES = (_CUDA_DIR / "traverse_binned.cu",
            _CUDA_DIR / "traverse_coherent.cu",
            _CUDA_DIR / "traverse_lbvh.cu",
-           _CUDA_DIR / "volume_march.cu")
+           _CUDA_DIR / "volume_march.cu",
+           _CUDA_DIR / "volume_march_bwd.cu")
 _BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / \
     "visionaray_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3",
@@ -202,9 +207,12 @@ def bind_library(lib_path) -> ctypes.CDLL:
             # rays, max_t, node tables, prim_ids, leaf tables, 3 prim
             # tables, 2 outputs, counters; 8 ints; the stream
             ("vsnray_traverse_lbvh", [p] * 16 + [i] * 8 + [p]),
-            # rays, boxes, texels, transfer, bg, 3 outputs, steps; n, V,
-            # D, H, W, T; step_scale; the stream
-            ("vsnray_volume_march", [p] * 11 + [i] * 6 + [f, p])):
+            # rays, boxes, texels, transfer, bg, 3 outputs, dst, steps; n,
+            # V, D, H, W, T; step_scale; the stream
+            ("vsnray_volume_march", [p] * 12 + [i] * 6 + [f, p]),
+            # rays, boxes, texels, transfer, bg, dst, dL/dcolor, 2
+            # gradients; n, V, D, H, W, T; step_scale; the stream
+            ("vsnray_volume_march_bwd", [p] * 11 + [i] * 6 + [f, p])):
         fn = getattr(lib, entry, None)
         if fn is None:
             continue

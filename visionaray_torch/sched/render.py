@@ -17,6 +17,7 @@ from typing import Any, Optional
 
 import torch
 
+from visionaray_torch.io.pixel_format import TypedRenderTarget, blend_device
 from visionaray_torch.kernels.ao import ao_kernel
 from visionaray_torch.kernels.params import KernelParams
 from visionaray_torch.kernels.pathtracing import pathtracing_kernel
@@ -186,15 +187,19 @@ def render(scene, cam, width: int, height: int, algo: str = "simple",
     wavelength; scenes whose materials already carry SPD channels
     (``cornell_box_spectral``) run spectrally without it.
     ``algo="volume"`` marches ``scene.volumes`` (kernels/volume.py).
-    Typed render targets are not ported.
+    ``rt``: a RenderTarget, or a quantized ``io.pixel_format.
+    TypedRenderTarget`` that the frame is blended into on the device.
     """
     _check_algo(algo)
     if spectral:
         if algo != "pathtracing":
             raise ValueError("spectral mode is a pathtracing mode")
         scene = lift_scene(scene, spectral)
-    if rt is not None and not isinstance(rt, RenderTarget):
-        raise NotImplementedError("only the float RenderTarget is ported")
+    if rt is not None and not isinstance(rt, (RenderTarget,
+                                              TypedRenderTarget)):
+        raise NotImplementedError(
+            f"render: rt must be a RenderTarget or a TypedRenderTarget, "
+            f"got {type(rt).__name__}")
     d_bounces, d_ambient, d_sampler = algo_defaults(algo)
     bounces = d_bounces if bounces is None else bounces
     ambient = d_ambient if ambient is None else ambient
@@ -217,10 +222,18 @@ def render(scene, cam, width: int, height: int, algo: str = "simple",
         if rt is None:
             return RenderTarget(color=color, depth=depth, width=width,
                                 height=height)
+        # progressive blend, alpha = 1/frame_num (sched_common.h:515-529)
         alpha = 1.0 / torch.tensor(float(frame_num), dtype=torch.float32,
                                    device=color.device)
-        return dataclasses.replace(rt, color=rt.color * (1.0 - alpha) + color * alpha,
-                       depth=rt.depth * (1.0 - alpha) + depth * alpha)
+        if isinstance(rt, TypedRenderTarget):
+            # a quantized target: blend through the device pixel_access
+            # path (the reference GL targets' blend into unorm8)
+            return dataclasses.replace(
+                blend_device(rt, color, alpha, 1.0 - alpha),
+                depth=rt.depth * (1.0 - alpha) + depth * alpha)
+        return dataclasses.replace(
+            rt, color=rt.color * (1.0 - alpha) + color * alpha,
+            depth=rt.depth * (1.0 - alpha) + depth * alpha)
 
 
 def _boundary_term(params, cam, width, height, algo, nee, frame_num, seed,

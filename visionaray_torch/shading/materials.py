@@ -121,6 +121,10 @@ class Materials:
             f.name: torch.cat([getattr(m, f.name) for m in mats], dim=0)
             for f in dataclasses.fields(Materials)})
 
+    @property
+    def num_materials(self):
+        return self.mtype.shape[0]
+
     def take(self, idx) -> "Materials":
         """Gather per-ray material rows by index."""
         return Materials(**{f.name: take(getattr(self, f.name), idx)
