@@ -151,21 +151,26 @@ Phases, each of which fails the run (non-zero exit) when it fails:
     equal and colour within 1e-5 (bit-equal or not is printed); its time
     from CUDA events, its steps from the counting form (sizing its
     operations bound: FLOP_STEP a step), registers, stack and spills from
-    ptxas; a permuted volume array gives the same image; rays that
-    require grad are refused on the card (ROADMAP item 6c).
+    ptxas; a permuted volume array gives the same image.
 20. Volume gradients, on phase 19's two scenes: (a) the backward kernel
     (volume_march_bwd.cu, one launch) against the plain version's
     autograd on the same COMPARE_LANES-lane subsets as phase 19 (the
-    three taken together), for the loss sum(color * w), w from a numpy
-    seed: texel and transfer gradients within relative L2 GRAD_BWD_REL,
-    cosine >= GRAD_BWD_COS, bg within BG_BWD_RTOL relative; (b) the
+    three taken together), for the loss sum(color * w) + sum(depth * wd),
+    w and wd from a numpy seed, in both of its forms: texels and transfer
+    alone (volume_bwd_kernel<false>, the training step's form), then
+    every gradient, ray (o, d) and box (lo, hi) ones too (<true>); each
+    gradient within relative L2 GRAD_BWD_REL, cosine >= GRAD_BWD_COS, bg
+    within BG_BWD_RTOL relative, and only the leaves that require grad
+    get one; (b) the
     volume training step at 1080p (volume_step_s, multi_volume_step_s):
     forward and backward of the MSE between render(algo="volume") and a
     target rendered with the transfer scaled by 0.8, over texels and
     transfer, one warm step then TIMED_STEPS timed: launches a step
     (counts reset just before the counted step), peak memory, gradients
-    finite and non-zero; the backward kernel's time by CUDA events, its
-    bound and ptxas' registers, stack and spills.
+    finite and non-zero; the backward kernel's time by CUDA events (for
+    texels and transfer, for the transfer alone, and for every gradient,
+    rays and boxes included), its bound and ptxas' registers, stack and
+    spills.
 21. The port's CLI, ``visionaray_torch.cli.main(argv)`` at 1920x1080,
     each run with its wall seconds, its launches (counts reset just
     before) and its check: (a) builtin:teapot, simple, on its LBVH;
@@ -185,6 +190,34 @@ Phases, each of which fails the run (non-zero exit) when it fails:
     pathtracing --nee --frames 4 --pixel-format RGBA8 (the LBVH): a
     progressive RGBA8 TypedRenderTarget, its file equal to the same four
     frames blended in process into a typed target.
+
+22. Tile sharding of the main path (parallel/tile_sharding.py): phase 3's
+    scene, tree and frame (1920x1080, 1 spp, 5-bounce NEE) through
+    render_image_sharded's flat pixel order, (a) on one rank of an NCCL
+    group against render_pixels over the same pixel ids in this process,
+    (b) on two ranks of a gloo group sharing the card against (a), at
+    phase 4's image tolerance (differing pixels counted); then
+    examples/inverse_rendering.py's gradient at 1080p (the MSE over the
+    frame, with respect to cd and ls, all-reduced): two ranks against one
+    at phase 6's limits.  Each rank's frame and gradient seconds,
+    launches by mode, peak memory and host staging.
+23. Config #5 (parallel/ring.py, parallel/sharded_pt.py):
+    sponza_x16_scene() (4,154,496 triangles) sharded over two gloo ranks
+    on the card, each keeping only its own shard (soup bytes about half
+    the unsharded soup's), on the lbvh backend (traverse_lbvh.cu every
+    hop) and the cluster backend (radix ClusterBVH a shard, row 1e every
+    hop: its K and entry point printed); the 3840x2160, 5-bounce NEE,
+    1 spp frame through render_image_geometry_sharded against the
+    unsharded frame (LBVH, render_pixels in tiles) rendered here, at
+    tests/test_sharded_render.py's rule; every hop launch mode held
+    against the plain version as in phases 2 and 14; the soup's vertex
+    gradient at 1920x1080 through soup_grads_to_faces (finite, non-zero,
+    on the rank's own faces only), and kernel against plain gradients at
+    32x32.  Each rank's frame and gradient seconds, hops and their payload
+    bytes, host staging seconds and peak memory.
+    The ranks of phases 22-23 are processes of this script
+    (``--rank-worker``), spawned and waited on; a rank's failure fails the
+    phase.  Their times are two ranks sharing one card over host loopback.
 
 Output: one line per check, then a JSON line with per-kernel numbers, the
 card's name and power limit, and as the last line
@@ -234,6 +267,7 @@ from visionaray_torch.ops import sah
 from visionaray_torch.ops.cluster_bvh import build_cluster_bvh
 from visionaray_torch.ops.lbvh import build_lbvh, sah_cost
 from visionaray_torch.ops.trace import TraceConfig, closest_hit, multi_hit
+from visionaray_torch.parallel import multihost
 from visionaray_torch.sched import step
 from visionaray_torch.sched.elastic import render_frame_elastic
 from visionaray_torch.sched.render import _pixel_grid, render, render_pixels
@@ -337,6 +371,9 @@ RENDER_BG = (0.1, 0.4, 1.0, 1.0)   # render's default bg_color
 VOLUME_BWD_SOURCE = "visionaray_torch/ops/cuda/volume_march_bwd.cu"
 VOLUME_BWD_ENTRY = "vsnray_volume_march_bwd"
 FLOP_STEP_BWD = 160              # f32 operations of one backward step
+# with the ray and box gradients: the trilinear slopes (8 taps, ~40) and
+# the chain through p, uvw, t and dt (~30)
+FLOP_STEP_BWD_ALL = 230
 GRAD_BWD_REL, GRAD_BWD_COS, BG_BWD_RTOL = 1e-4, 0.9999, 1e-5
 TARGET_TRANSFER_SCALE = 0.8      # the step's target: transfer x 0.8
 # phase 21: the CLI at full width; x16's scene as the repo's config #5
@@ -571,8 +608,10 @@ def form_name(mangled):
     m = re.search(r"volume_kernelILb(\d)E", mangled)
     if m:
         return f"volume count={m.group(1)}"
-    if "volume_bwd_kernel" in mangled:
-        return "volume_bwd"
+    m = re.search(r"volume_bwd_kernelILb(\d)E", mangled)
+    if m:
+        # pos=1: with the ray and box gradients
+        return f"volume_bwd pos={m.group(1)}"
     return mangled
 
 
@@ -1967,14 +2006,6 @@ def volume_phase(label, scene, cam, dev, entries, ptx):
     pvols = Volumes(vols.lo[perm], vols.hi[perm], vols.texels[perm],
                     vols.transfer[perm])
     perm_same = torch.equal(volume_march(o, d, pvols, bg)[0], kc)
-    # a gradient to the rays on the card raises (item 6c)
-    with torch.enable_grad():
-        try:
-            volume_march(o[:128].clone().requires_grad_(), d[:128], vols,
-                         bg)
-            refused = False
-        except NotImplementedError as e:
-            refused = "6c" in str(e)
     # for reference: one trilinear step of the same lanes through
     # grid_sample (no PyTorch call marches a volume; library_ms is null)
     grid = (2.0 * (o + d) - 1.0).clamp(-1, 1).reshape(1, 1, 1, n, 3)
@@ -1983,14 +2014,14 @@ def volume_phase(label, scene, cam, dev, entries, ptx):
         tex, grid, mode="bilinear", padding_mode="border",
         align_corners=False), 5)
     good = (hit_mm == 0 and depth_mm == 0 and max_abs <= VOLUME_ATOL
-            and same_frame and perm_same and refused)
+            and same_frame and perm_same)
     form = ptx.get("volume count=0", {})
     log(f"kernel volume_march [{label}, volume_march.cu]: compared "
         f"{3 * COMPARE_LANES} lanes hit_mismatch={hit_mm} depth_mismatch="
         f"{depth_mm} max_abs_color={max_abs:.3e} "
         f"({'bit-equal' if max_abs == 0.0 else 'not bit-equal'}) launch "
         f"equals the frame={same_frame} permuted volumes same image="
-        f"{perm_same} ray gradient refused={refused} | lanes={n} "
+        f"{perm_same} | lanes={n} "
         f"ms={ms:.4f} "
         f"plain_ms({COMPARE_LANES} lanes)={plain_ms:.3f} steps={total} "
         f"(mean {total / n:.1f}, max {int(steps.max())}) bound_ms="
@@ -2051,43 +2082,76 @@ def volume_grad_phase(label, scene, cam, dev, entries, ptx):
                        for s0 in (0, n // 2 - COMPARE_LANES // 2,
                                   n - COMPARE_LANES)])
     so, sd = o[lanes], d[lanes]
-    w = torch.as_tensor(np.random.default_rng(20).uniform(
-        -1.0, 1.0, (lanes.numel(), 4)).astype(np.float32), device=dev)
+    rng = np.random.default_rng(20)
+    w = torch.as_tensor(rng.uniform(-1.0, 1.0, (lanes.numel(), 4)).astype(
+        np.float32), device=dev)
+    wd = torch.as_tensor(rng.uniform(-1.0, 1.0, lanes.numel()).astype(
+        np.float32), device=dev)
+    names = ("texels", "transfer", "o", "d", "lo", "hi")
 
-    def grads(march):
-        tex = vols.texels.detach().clone().requires_grad_()
-        tr = vols.transfer.detach().clone().requires_grad_()
+    def grads(march, wanted):
+        """The gradients of the leaves in ``wanted`` and of bg (None for a
+        leaf that does not require grad)."""
+        leaves = [vols.texels, vols.transfer, so, sd, vols.lo, vols.hi]
+        leaves = [x.detach().clone().requires_grad_(k in wanted)
+                  for k, x in zip(names, leaves)]
         bg = torch.tensor(RENDER_BG, device=dev, requires_grad=True)
         with torch.enable_grad():
-            color, _, _ = march(so, sd, dataclasses.replace(
-                vols, texels=tex, transfer=tr), bg)
-            (color * w).sum().backward()
+            color, _, depth = march(leaves[2], leaves[3], Volumes(
+                lo=leaves[4], hi=leaves[5], texels=leaves[0],
+                transfer=leaves[1]), bg)
+            ((color * w).sum() + (depth * wd).sum()).backward()
         torch.cuda.synchronize()
-        return tex.grad, tr.grad, bg.grad
+        return [x.grad for x in leaves] + [bg.grad]
 
-    trav.reset_launch_counts()
-    kt, ktr, kbg = grads(volume_march)
-    cmp_launches = (trav.LAUNCHES["volume_march"],
+    def check_form(form, wanted):
+        """The kernel form that ``wanted`` launches (volume_bwd_kernel<
+        false> for texels and transfer: no ray or box gradient is asked
+        of the kernel; <true> with them) against the plain version's
+        autograd on the same lanes."""
+        trav.reset_launch_counts()
+        kg = grads(volume_march, wanted)
+        launches = (trav.LAUNCHES["volume_march"],
                     trav.LAUNCHES["volume_march_bwd"])
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    pt, ptr, pbg = grads(march_plain)
-    plain_s = time.perf_counter() - t0
-    tex_rel, tex_cos = grad_stats(kt, pt)
-    tr_rel, tr_cos = grad_stats(ktr, ptr)
-    bg_rel = float((kbg - pbg).abs().max() / pbg.abs().max())
-    max_abs = max(float((kt - pt).abs().max()), float((ktr - ptr).abs().max()),
-                  float((kbg - pbg).abs().max()))
-    good = (cmp_launches == (1, 1) and tex_rel <= GRAD_BWD_REL
-            and tr_rel <= GRAD_BWD_REL and tex_cos >= GRAD_BWD_COS
-            and tr_cos >= GRAD_BWD_COS and bg_rel <= BG_BWD_RTOL
-            and float(pt.abs().max()) > 0 and float(ptr.abs().max()) > 0)
-    log(f"volume gradients [{label}] kernel vs plain autograd on "
-        f"{lanes.numel()} lanes (launches fwd/bwd {cmp_launches}): texels "
-        f"rel_l2={tex_rel:.3e} cos={tex_cos:.8f}; transfer rel_l2="
-        f"{tr_rel:.3e} cos={tr_cos:.8f}; bg max_rel={bg_rel:.3e}; "
-        f"max_abs={max_abs:.3e}; plain fwd+bwd {plain_s:.3f} s "
-        f"{'OK' if good else 'FAIL'}")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pg = grads(march_plain, wanted)
+        plain_s = time.perf_counter() - t0
+        stats = {k: grad_stats(a, b) for k, a, b in zip(names, kg, pg)
+                 if k in wanted}
+        kbg, pbg = kg[-1], pg[-1]
+        bg_rel = float((kbg - pbg).abs().max() / pbg.abs().max())
+        got = [a for a in kg if a is not None]
+        max_abs = max(float((a - b).abs().max()) for a, b in zip(kg, pg)
+                      if a is not None)
+        # the form: a leaf that requires no grad gets none from either
+        form_ok = all((a is None) == (k not in wanted) and
+                      (b is None) == (k not in wanted)
+                      for k, a, b in zip(names, kg, pg))
+        good = (launches == (1, 1) and form_ok and bg_rel <= BG_BWD_RTOL
+                and all(rel <= GRAD_BWD_REL and cos >= GRAD_BWD_COS
+                        for rel, cos in stats.values())
+                and all(float(b.abs().max()) > 0
+                        for k, b in zip(names, pg) if k in wanted)
+                and all(bool(torch.isfinite(a).all()) for a in got))
+        log(f"volume gradients [{label}] {form}: kernel vs plain autograd "
+            f"on {lanes.numel()} lanes, loss over colour and depth "
+            f"(launches fwd/bwd {launches}, leaves with a gradient "
+            f"{[k for k, a in zip(names, kg) if a is not None]}): "
+            + "; ".join(f"{k} rel_l2={r:.3e} cos={c:.8f}"
+                        for k, (r, c) in stats.items())
+            + f"; bg max_rel={bg_rel:.3e}; max_abs={max_abs:.3e}; plain "
+            f"fwd+bwd {plain_s:.3f} s {'OK' if good else 'FAIL'}")
+        return good, stats, bg_rel, max_abs, plain_s
+
+    good_tt, stats, bg_rel, max_abs, plain_s = check_form(
+        "texels and transfer (volume_bwd_kernel<false>, the training "
+        "step's form)", ("texels", "transfer"))
+    good_all, stats_all, bg_rel_all, max_abs_all, plain_all_s = check_form(
+        "every gradient (volume_bwd_kernel<true>)", names)
+    good = good_tt and good_all
+    tex_rel, tex_cos = stats["texels"]
+    tr_rel, tr_cos = stats["transfer"]
 
     # the volume training step at full width
     with torch.no_grad():
@@ -2136,16 +2200,26 @@ def volume_grad_phase(label, scene, cam, dev, entries, ptx):
         steps = torch.zeros(n, dtype=torch.int32, device=dev)
         volume_march(o, d, vols, bg, steps=steps)
         total = int(steps.sum(dtype=torch.int64))
-        bwd_ms = cuda_ms(lambda: tvol.march_backward(o, d, vols, bg, dst,
-                                                     gcolor), 3)
+        bwd_ms = cuda_ms(lambda: tvol.march_backward(
+            o, d, vols, bg, dst, gcolor, wanted=("texels", "transfer")), 3)
         bwd_tr_ms = cuda_ms(lambda: tvol.march_backward(
-            o, d, vols, bg, dst, gcolor, texels_grad=False), 3)
+            o, d, vols, bg, dst, gcolor, wanted=("transfer",)), 3)
+        bwd_all_ms = cuda_ms(lambda: tvol.march_backward(
+            o, d, vols, bg, dst, gcolor), 3)
         fwd_ms = cuda_ms(lambda: volume_march(o, d, vols, bg), 3)
     t_bytes = volume_bwd_bytes(n, vols) / PEAK_BYTES_S * 1e3
     atomic_bytes = volume_atomic_bytes(total)
     t_ops = total * FLOP_STEP_BWD / PEAK_F32_S * 1e3
     bound = max(t_bytes, t_ops)
-    form = ptx.get("volume_bwd", {})
+    # every gradient: the rays' (n, 6) written once and the boxes' flushed
+    # once a block, beside the texels' and transfer's
+    blocks = min(-(-n // 128), 2048)
+    all_bytes = (volume_bwd_bytes(n, vols) + n * 6 * 4
+                 + blocks * vols.lo.numel() * 2 * 16) / PEAK_BYTES_S * 1e3
+    all_ops = total * FLOP_STEP_BWD_ALL / PEAK_F32_S * 1e3
+    bound_all = max(all_bytes, all_ops)
+    form = ptx.get("volume_bwd pos=0", {})
+    form_pos = ptx.get("volume_bwd pos=1", {})
     ok = good and step_ok
     log(f"volume step [{label}] {WIDTH}x{HEIGHT} MSE vs transfer x "
         f"{TARGET_TRANSFER_SCALE} over texels and transfer: step_s="
@@ -2153,20 +2227,27 @@ def volume_grad_phase(label, scene, cam, dev, entries, ptx):
         f"warm_s={warm_s:.3f} launches={step_launches} peak_bytes={peak} "
         f"(+{peak - base_mem}) loss={float(loss.detach()):.6e} "
         f"finite={finite} | "
-        f"backward kernel ms={bwd_ms:.4f} (transfer only {bwd_tr_ms:.4f}, "
-        f"forward {fwd_ms:.4f}) steps={total} bound_ms={bound:.4f} "
+        f"backward kernel, texels and transfer (<false>): ms={bwd_ms:.4f} "
+        f"(transfer only {bwd_tr_ms:.4f}) bound_ms={bound:.4f} "
         f"({'bytes' if t_bytes >= t_ops else 'operations'}; bytes "
-        f"{t_bytes:.4f}, operations {t_ops:.4f}) texel_atomic_bytes="
-        f"{atomic_bytes} registers="
+        f"{t_bytes:.4f}, operations {t_ops:.4f}) registers="
         f"{form.get('regs')} stack={form.get('stack')} spills="
-        f"{form.get('spill')} {'OK' if ok else 'FAIL'}")
+        f"{form.get('spill')} texel rel_l2={tex_rel:.3e} transfer "
+        f"rel_l2={tr_rel:.3e} | every gradient (<true>): ms="
+        f"{bwd_all_ms:.4f} bound_ms={bound_all:.4f} registers="
+        f"{form_pos.get('regs')} stack={form_pos.get('stack')} spills="
+        f"{form_pos.get('spill')} rel_l2 "
+        + " ".join(f"{k}={stats_all[k][0]:.3e}" for k in names)
+        + f" | forward {fwd_ms:.4f} steps={total} texel_atomic_bytes="
+        f"{atomic_bytes} {'OK' if ok else 'FAIL'}")
     entries.append({
         "name": f"volume_march_bwd_{label.replace(' ', '_')}",
         "route": "cuda", "source": VOLUME_BWD_SOURCE,
         "entry": VOLUME_BWD_ENTRY, "replaces": VOLUME_REPLACES,
         "mode_key": "volume_march_bwd",
         "launches": step_launches.get("volume_march_bwd", 0),
-        "max_abs_err": max_abs, "ms": bwd_ms, "plain_ms": plain_s * 1e3,
+        "max_abs_err": max(max_abs, max_abs_all), "ms": bwd_ms,
+        "plain_ms": plain_s * 1e3,
         "plain_lanes": int(lanes.numel()), "bound_ms": bound,
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
         "library_ms": None, "lanes": n, "steps": total,
@@ -2175,12 +2256,26 @@ def volume_grad_phase(label, scene, cam, dev, entries, ptx):
         "ms_transfer_only": bwd_tr_ms, "texel_rel_l2": tex_rel,
         "texel_cos": tex_cos, "transfer_rel_l2": tr_rel,
         "transfer_cos": tr_cos, "bg_max_rel": bg_rel,
+        "ms_all_gradients": bwd_all_ms, "bound_ms_all_gradients": bound_all,
+        "plain_ms_all_gradients": plain_all_s * 1e3,
+        "flop_step_all": FLOP_STEP_BWD_ALL,
+        "max_abs_err_all_gradients": max_abs_all,
+        "bg_max_rel_all_gradients": bg_rel_all,
+        **{f"{k}_rel_l2_all_gradients": stats_all[k][0] for k in names},
+        **{f"{k}_cos_all_gradients": stats_all[k][1] for k in names},
         "registers": form.get("regs"), "stack": form.get("stack"),
-        "spills": form.get("spill"), "launches_training_step":
+        "spills": form.get("spill"),
+        "registers_all_gradients": form_pos.get("regs"),
+        "spills_all_gradients": form_pos.get("spill"),
+        "launches_training_step":
             step_launches.get("volume_march_bwd", 0), "phase": label})
     return ok, dict(step_s=step_s, step_times=times, warm_s=warm_s,
                     peak_bytes=peak, bwd_kernel_ms=bwd_ms,
                     bwd_kernel_transfer_only_ms=bwd_tr_ms,
+                    bwd_kernel_all_ms=bwd_all_ms,
+                    bwd_all_bound_ms=bound_all,
+                    all_gradients_rel_l2={k: stats_all[k][0]
+                                          for k in names},
                     fwd_kernel_ms=fwd_ms, bound_ms=bound, steps=total,
                     texel_rel_l2=tex_rel, transfer_rel_l2=tr_rel,
                     launches=step_launches, plain_s=plain_s), vstep
@@ -2366,11 +2461,482 @@ def cli_phase(dev, tmp):
     return ok_all, out
 
 
+# ---------------------------------------------------------------------------
+# Phases 22-23: parallel/ (torch.distributed).  The ranks are processes of
+# this script (``--rank-worker``), spawned and waited on by the parent; a
+# rank's failure or timeout fails the phase.  On one card two ranks share
+# the GPU over a gloo group, whose transport stages CUDA tensors through
+# host buffers (parallel/comm.py): every time of these phases is two ranks
+# sharing one card over host loopback, not a multi-GPU number.
+
+RANKS = 2            # on one card: a gloo group (NCCL refuses two a card)
+RANK_TIMEOUT = 900
+RANK_BG = (0.2, 0.3, 0.5, 1.0)   # the main path's background
+CONFIG5_SIZE = (3840, 2160)      # BASELINE config #5: 4K
+CONFIG5_BACKENDS = ("lbvh", "cluster")
+CONFIG5_GRAD_SIZE = (WIDTH, HEIGHT)
+CONFIG5_CHECK = 32               # kernel vs plain gradients at 32 x 32
+# tests/test_sharded_render.py's rule for a sharded frame against the
+# unsharded one: channels within atol 2e-3 / rtol 1e-4, means within 5e-3
+SHARD_CLOSE_SHARE, SHARD_MEAN_RTOL = 0.995, 5e-3
+
+
+def spawn_ranks(task, world, comm_backend, tmp):
+    """Run ``task`` on ``world`` rank processes (multihost.spawn_local)
+    and wait for all of them; (ok, per-rank results).  A rank that exits
+    non-zero, or the time limit, ends the others at once and fails the
+    phase."""
+    logs = [open(f"{tmp}/{task}_{world}_{r}.log", "w") for r in range(world)]
+    try:
+        codes = multihost.spawn_local(
+            world, [__file__, "--rank-worker", task, comm_backend, tmp],
+            timeout=RANK_TIMEOUT, outputs=logs)
+    finally:
+        for f in logs:
+            f.close()
+    results = []
+    for r, code in enumerate(codes):
+        with open(f"{tmp}/{task}_{world}_{r}.log") as f:
+            for line in f.read().rstrip().splitlines():
+                log(f"  [{task} rank {r}/{world}] {line}")
+        if code != 0:
+            log(f"FAIL: {task} rank {r} of {world} exited {code}")
+            continue
+        with open(f"{tmp}/{task}_{world}_{r}.json") as f:
+            results.append(json.load(f))
+    return len(results) == world, results
+
+
+def _rank_stats(t0, comm):
+    torch.cuda.synchronize()
+    return dict(seconds=time.perf_counter() - t0,
+                peak_mem_bytes=torch.cuda.max_memory_allocated(),
+                transport=dict(comm.STATS),
+                launches={k: v for k, v in trav.LAUNCHES.items() if v},
+                entry_launches={k: v for k, v in trav.ENTRY_LAUNCHES.items()
+                                if v})
+
+
+def _reset_rank_counts(comm):
+    """Zero the counters once every rank is here (so a timed section does
+    not count the wait for a slower rank's earlier work)."""
+    torch.cuda.synchronize()
+    torch.distributed.barrier()
+    comm.reset_stats()
+    trav.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+
+
+def tile_worker(rank, world, dev, tmp, comm, res):
+    """Phase 22 on one rank: the main path's frame through
+    render_image_sharded, then examples/inverse_rendering.py's gradient
+    at 1080p (MSE over the frame; cd and ls, all-reduced)."""
+    from visionaray_torch.parallel.tile_sharding import (
+        all_reduce_grads, make_mesh, render_image_sharded,
+    )
+    mesh = make_mesh()
+    scene, cam = sponza_like_scene(target_tris=TARGET_TRIS, build_bvh=False,
+                                   device=dev)
+    scene.bvh = build_cluster_bvh(scene.mesh, cluster_size=K, treelet_size=T)
+    params = KernelParams.create(scene, num_bounces=BOUNCES, epsilon=1e-3,
+                                 bg_color=RANK_BG,
+                                 ambient_color=(1.0, 1.0, 1.0, 1.0))
+
+    def frame(num, p=params):
+        return render_image_sharded(p, cam, WIDTH, HEIGHT, mesh,
+                                    algo="pathtracing", spp=SPP,
+                                    pixel_sampler="jittered_blend",
+                                    frame_num=num, nee=True)
+
+    with torch.no_grad():
+        frame(1)
+        _reset_rank_counts(comm)
+        t0 = time.perf_counter()
+        color, _ = frame(2)
+        res["frame"] = _rank_stats(t0, comm)
+        if rank == 0:
+            np.save(f"{tmp}/tile_{world}_color.npy", color.cpu().numpy())
+        comm.reset_stats()
+        res["profile"] = profile_run(lambda: frame(3),
+                                     f"tile rank {rank}/{world} frame")
+        res["profile"]["staging_s"] = comm.STATS["staging_s"]
+        mats = scene.materials
+        target = frame(9999)[0][..., :3]
+
+    def theta_params(cd, ls):
+        m = dataclasses.replace(mats, cd=cd, ls=ls)
+        return dataclasses.replace(params, scene=dataclasses.replace(
+            scene, materials=m))
+
+    def grad_step():
+        cd = torch.clip(mats.cd * 0.3 + 0.3, 0.05, 0.95).requires_grad_()
+        ls = (mats.ls * 0.5).requires_grad_()
+        loss = torch.mean((frame(1, theta_params(cd, ls))[0][..., :3]
+                           - target) ** 2)
+        loss.backward()
+        all_reduce_grads([cd, ls], mesh)
+        return loss, cd, ls
+
+    grad_step()   # warm: the backward's first run
+    _reset_rank_counts(comm)
+    t0 = time.perf_counter()
+    loss, cd, ls = grad_step()
+    res["grad_step"] = _rank_stats(t0, comm)
+    res["loss"] = float(loss.detach())
+    np.save(f"{tmp}/tile_{world}_{rank}_gcd.npy", cd.grad.cpu().numpy())
+    np.save(f"{tmp}/tile_{world}_{rank}_gls.npy", ls.grad.cpu().numpy())
+    return True
+
+
+def _soup_bytes(soup):
+    return sum(x.numel() * x.element_size() for x in (
+        soup.v1, soup.e1, soup.e2, soup.geom_ids, soup.corner_normals,
+        soup.tex_coords))
+
+
+def geo_worker(backend, rank, world, dev, tmp, comm, res):
+    """Phase 23 on one rank: config #5 sharded over the ranks, the 4K
+    frame through render_image_geometry_sharded (every hop's launches
+    recorded and held against the plain version), then the soup's vertex
+    gradient at 1080p through soup_grads_to_faces, and kernel against
+    plain gradients at 32 x 32."""
+    from visionaray_torch.parallel import ring
+    from visionaray_torch.parallel.sharded_pt import (
+        render_image_geometry_sharded, soup_grads_to_faces,
+    )
+    from visionaray_torch.parallel.tile_sharding import make_mesh
+    from visionaray_torch.scenes import sponza_x16_scene
+    mesh = make_mesh()
+    t0 = time.perf_counter()
+    scene, cam = sponza_x16_scene(device=dev)
+    F = scene.num_triangles
+    geo = ring.shard_geometry(scene.mesh, world, backend=backend,
+                              with_shading=True, shards=(rank,))
+    torch.cuda.synchronize()
+    res["shard_s"] = time.perf_counter() - t0
+    full = ring.SoupMesh(*[torch.empty((F,) + tuple(x.shape[2:]),
+                                       dtype=x.dtype, device="meta")
+                           for x in (geo.soup.v1, geo.soup.e1, geo.soup.e2,
+                                     geo.soup.geom_ids,
+                                     geo.soup.corner_normals,
+                                     geo.soup.tex_coords)])
+    mats, lights = scene.materials, scene.lights
+    del scene
+    torch.cuda.empty_cache()
+    res.update(triangles=F, prims_per_shard=geo.prims_per_shard,
+               soup_bytes=_soup_bytes(geo.soup),
+               unsharded_soup_bytes=_soup_bytes(full),
+               allocated_bytes=torch.cuda.memory_allocated())
+    if backend == "cluster":
+        b = geo.bvh[0]
+        res["cluster"] = dict(K=b.cluster_size, C=b.num_clusters,
+                              depth=b.depth, heap=b.heap,
+                              entry=trav.launch_form(
+                                  b.heap, b.num_clusters, False, False, 2,
+                                  False, b.cluster_size)[0])
+    W5, H5 = CONFIG5_SIZE
+
+    def frame(num, w=W5, h=H5, g=geo):
+        return render_image_geometry_sharded(
+            g, mats, lights, cam, w, h, mesh, num_bounces=BOUNCES, spp=SPP,
+            eps=1e-3, bg_color=RANK_BG, ambient=(1.0, 1.0, 1.0),
+            frame_num=num, nee=True)
+
+    lbvh = backend == "lbvh"
+    with torch.no_grad():
+        rec = BvhRecorder(tt.bvh_traverse) if lbvh else \
+            LaunchRecorder(trav.cluster_traverse)
+        with (bvh_recorded(rec) if lbvh else recorded(rec)):
+            frame(1)
+        _reset_rank_counts(comm)
+        t0 = time.perf_counter()
+        color, _ = frame(2)
+        res["frame"] = _rank_stats(t0, comm)
+        counts = dict(trav.LAUNCHES)
+        if rank == 0:
+            np.save(f"{tmp}/geo_{backend}_{world}_color.npy",
+                    color.cpu().numpy())
+        del color
+        comm.reset_stats()
+        res["profile"] = profile_run(
+            lambda: frame(3), f"config #5 {backend} rank {rank} frame")
+        res["profile"]["staging_s"] = comm.STATS["staging_s"]
+        ok, entries = True, []
+        for key, lns in rec.launches.items():
+            name = f"traverse_{key}_config5_{backend}_rank{rank}"
+            if lbvh:
+                good, entry = check_lbvh_mode(key, name, lns, counts)
+            else:
+                good, entry = check_mode(key, name, "1e", lns, geo.bvh[0],
+                                         counts)
+            entry.update(phase=f"23 {backend} rank {rank}",
+                         launches_training_step=0)
+            entries.append(entry)
+            ok &= good
+        res["entries"] = entries
+        del rec
+
+    # the vertex gradient at 1080p, mapped to faces
+    leaves = [geo.soup.v1, geo.soup.e1, geo.soup.e2]
+    for x in leaves:
+        x.requires_grad_()
+    _reset_rank_counts(comm)
+    t0 = time.perf_counter()
+    loss = frame(1, *CONFIG5_GRAD_SIZE)[0][..., :3].mean()
+    loss.backward()
+    res["grad_step"] = _rank_stats(t0, comm)
+    g_faces = soup_grads_to_faces(geo.soup.v1.grad, geo.prim_ids, F)
+    mine = torch.zeros(F, dtype=torch.bool, device=dev)
+    mine[geo.prim_ids.reshape(-1).long()] = True
+    res["grad"] = dict(
+        loss=float(loss.detach()),
+        finite=all(bool(torch.isfinite(x.grad).all()) for x in leaves),
+        norm=float(g_faces.norm()), faces_nonzero=int(
+            (g_faces.abs().sum(-1) > 0).sum()),
+        outside_shard=float(g_faces[~mine].abs().sum()))
+    log(f"rank {rank} 1080p soup gradient: {res['grad']}")
+    # a shard that wins no hit of the frame has a zero gradient (the
+    # parent requires a non-zero one on some rank)
+    ok &= res["grad"]["finite"] and res["grad"]["outside_shard"] == 0.0
+    for x in leaves:
+        x.grad = None
+    del loss, g_faces
+
+    # kernel against plain gradients at 32 x 32
+    def small():
+        for x in leaves:
+            x.grad = None
+        lo = frame(1, CONFIG5_CHECK, CONFIG5_CHECK)[0][..., :3].mean()
+        lo.backward()
+        return float(lo.detach()), [x.grad.clone() for x in leaves]
+
+    loss_k, gk = small()
+    with (plain_bvh() if lbvh else plain_traversal()):
+        loss_p, gp = small()
+    stats = [grad_stats(a, b) for a, b in zip(gk, gp)]
+    # a zero gradient (no hit on this shard) has no rel_l2 or cos: None
+    res["grad_check"] = dict(loss_rel=abs(loss_k - loss_p) / abs(loss_p),
+                             rel_l2=[None if r != r else r
+                                     for r, _ in stats],
+                             cos=[None if c != c else c for _, c in stats],
+                             plain_norm=[float(b.norm()) for b in gp])
+    log(f"rank {rank} 32x32 kernel vs plain gradients: "
+        f"{res['grad_check']}")
+    # a rank whose shard wins no 32 x 32 hit has zero gradients, through
+    # the kernel as through the plain version
+    ok &= res["grad_check"]["loss_rel"] <= LOSS_RTOL and all(
+        (float(b.norm()) == 0 and float(a.norm()) == 0)
+        or (rel <= GRAD_REL_L2 and cos >= GRAD_COS)
+        for (rel, cos), a, b in zip(stats, gk, gp))
+    return ok
+
+
+def rank_worker(argv):
+    """``chip_smoke.py --rank-worker TASK BACKEND TMP``, with RANK,
+    WORLD_SIZE, MASTER_ADDR and MASTER_PORT in the environment
+    (spawn_ranks): one rank of phase 22 (TASK tile) or 23 (geo_lbvh,
+    geo_cluster); its results go to TMP/TASK_WORLD_RANK.json.  Exits
+    non-zero on failure."""
+    from visionaray_torch.parallel import comm
+    task, backend, tmp = argv
+    multihost.initialize(backend=backend, device="cuda")
+    rank = torch.distributed.get_rank()
+    world = torch.distributed.get_world_size()
+    dev = torch.device("cuda", torch.cuda.current_device())
+    torch.backends.cuda.matmul.allow_tf32 = False
+    trav._library()   # built by the parent: the same hash, loaded here
+    res = dict(task=task, rank=rank, world=world, backend=backend)
+    if task == "tile":
+        ok = tile_worker(rank, world, dev, tmp, comm, res)
+    else:
+        ok = geo_worker(task.split("_", 1)[1], rank, world, dev, tmp, comm,
+                        res)
+    res["ok"] = bool(ok)
+    with open(f"{tmp}/{task}_{world}_{rank}.json", "w") as f:
+        json.dump(res, f)
+    torch.distributed.destroy_process_group()
+    log(f"rank {rank}/{world} {task}: {'OK' if ok else 'FAIL'}")
+    return 0 if ok else 1
+
+
+def _grad_close(a, b):
+    """(rel_l2, cos, ok) of two gradients; two zero gradients agree."""
+    a, b = torch.as_tensor(a), torch.as_tensor(b)
+    if float(b.abs().max()) == 0.0:
+        return 0.0, 1.0, float(a.abs().max()) == 0.0
+    rel, cos = grad_stats(a, b)
+    return rel, cos, rel <= GRAD_REL_L2 and cos >= GRAD_COS
+
+
+def tile_phase(params, cam, dev, tmp):
+    """Phase 22: tile sharding of the main path at 1080p: (a) one rank on
+    NCCL against render_pixels over the same flat pixel ids in this
+    process, (b) two gloo ranks on the card against (a); the
+    inverse-rendering gradient of two ranks against one rank's."""
+    ok1, one = spawn_ranks("tile", 1, "nccl", tmp)
+    ok2, two = spawn_ranks("tile", RANKS, "gloo", tmp)
+    ok = ok1 and ok2 and all(r["ok"] for r in one + two)
+    if not (ok1 and ok2):
+        return False, {}
+    x, y = _pixel_grid(WIDTH, HEIGHT, dev)
+    with torch.no_grad():
+        ref = render_pixels(params, cam, x, y, WIDTH, HEIGHT, "pathtracing",
+                            SPP, "jittered_blend", 2, nee=True)[0]
+    c1 = torch.as_tensor(np.load(f"{tmp}/tile_1_color.npy"),
+                         device=dev).reshape(-1, 4)
+    c2 = torch.as_tensor(np.load(f"{tmp}/tile_{RANKS}_color.npy"),
+                         device=dev).reshape(-1, 4)
+    d1 = image_diff(c1, ref)
+    d2 = image_diff(c2, c1)
+    px1 = int(((c1 - ref).abs().amax(-1) > 0).sum())
+    px2 = int(((c2 - c1).abs().amax(-1) > 0).sum())
+    img_ok = all(m <= IMG_MEAN_ABS and sh <= IMG_PIX_SHARE
+                 for m, sh in (d1, d2)) and bool(torch.isfinite(c2).all())
+    g = {}
+    for k in ("gcd", "gls"):
+        a1 = np.load(f"{tmp}/tile_1_0_{k}.npy")
+        a2 = [np.load(f"{tmp}/tile_{RANKS}_{r}_{k}.npy")
+              for r in range(RANKS)]
+        same = all(np.array_equal(a2[0], a) for a in a2[1:])
+        g[k] = (*_grad_close(a2[0], a1), same)
+    loss_rel = max(abs(r["loss"] - one[0]["loss"]) / abs(one[0]["loss"])
+                   for r in two)
+    grad_ok = loss_rel <= LOSS_RTOL and all(v[2] and v[3]
+                                            for v in g.values())
+    ok = ok and img_ok and grad_ok
+    log(f"tile sharding 1920x1080 spp=1 bounces=5 nee, treelet ClusterBVH "
+        f"K={K} T={T} (two ranks share one card over gloo, host loopback): "
+        f"(a) 1 rank nccl vs render_pixels mean_abs={d1[0]:.3e} "
+        f"pixels_over_{IMG_PIX_TOL:g}={d1[1]:.5f} differing_pixels={px1}; "
+        f"(b) {RANKS} ranks gloo vs (a) mean_abs={d2[0]:.3e} "
+        f"pixels_over_{IMG_PIX_TOL:g}={d2[1]:.5f} differing_pixels={px2} "
+        f"{'OK' if img_ok else 'FAIL'}")
+    for label, rs in (("1 rank nccl", one), (f"{RANKS} ranks gloo", two)):
+        for r in rs:
+            f, st = r["frame"], r["grad_step"]
+            log(f"  {label} rank {r['rank']}: frame_s={f['seconds']:.4f} "
+                f"peak_mem_bytes={f['peak_mem_bytes']} launches="
+                f"{f['launches']} entry_launches={f['entry_launches']} "
+                f"staging_s={f['transport']['staging_s']:.4f} "
+                f"staged_bytes={f['transport']['staged_bytes']} | grad "
+                f"step_s={st['seconds']:.4f} peak_mem_bytes="
+                f"{st['peak_mem_bytes']} launches={st['launches']} "
+                f"staging_s={st['transport']['staging_s']:.4f} "
+                f"loss={r['loss']:.7e}")
+    log(f"  inverse-rendering gradient (MSE over the frame; cd, ls; "
+        f"all-reduced) {RANKS} ranks vs 1: loss_rel={loss_rel:.3e} "
+        + " ".join(f"{k} rel_l2={v[0]:.3e} cos={v[1]:.9f} "
+                   f"equal_on_ranks={v[3]}" for k, v in g.items())
+        + f" {'OK' if grad_ok else 'FAIL'}")
+    return ok, dict(one=one, two=two, image_1_vs_plain=d1,
+                    image_2_vs_1=d2, differing_pixels=[px1, px2],
+                    grad={k: list(v) for k, v in g.items()},
+                    loss_rel=loss_rel)
+
+
+def _sharded_close(a, b):
+    close = torch.isclose(a, b, atol=2e-3, rtol=1e-4).float().mean()
+    mrel = abs(float(a.mean()) - float(b.mean())) / abs(float(b.mean()))
+    return float(close), mrel
+
+
+def config5_phase(dev, tmp, entries, world=RANKS):
+    """Phase 23: config #5 (sponza_x16_scene, 4,154,496 triangles) sharded
+    over ``world`` ranks, on the lbvh and cluster backends, against the
+    unsharded frame rendered here on the card.  The ranks take a card
+    each over NCCL where there are enough cards, else share them over
+    gloo (multihost.local_backend): two gloo ranks on one card here,
+    scripts/torch_config5_ranks.py's four NCCL ranks on four."""
+    from visionaray_torch.scenes import sponza_x16_scene
+    comm_backend = multihost.local_backend(world, dev)
+    out, ok = {}, True
+    for backend in CONFIG5_BACKENDS:
+        good, rs = spawn_ranks(f"geo_{backend}", world, comm_backend, tmp)
+        ok &= good and all(r["ok"] for r in rs)
+        out[backend] = rs
+        for r in rs:
+            entries.extend(r.get("entries", []))
+    torch.cuda.empty_cache()
+    W5, H5 = CONFIG5_SIZE
+    with torch.no_grad():
+        scene, cam = sponza_x16_scene(device=dev)
+        t0 = time.perf_counter()
+        scene.bvh = build_lbvh(scene.mesh)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        params = KernelParams.create(scene, num_bounces=BOUNCES,
+                                     epsilon=1e-3, bg_color=RANK_BG,
+                                     ambient_color=(1.0, 1.0, 1.0, 1.0))
+        t0 = time.perf_counter()
+        ref, _ = step_free_frame(params, cam, W5, H5)
+        torch.cuda.synchronize()
+        ref_s = time.perf_counter() - t0
+    out["unsharded"] = dict(frame_s=ref_s, lbvh_build_s=build_s)
+    log(f"config #5 unsharded reference: sponza_x16 "
+        f"{scene.num_triangles} triangles, LBVH built in {build_s:.3f} s, "
+        f"{W5}x{H5} NEE frame in tiles {ref_s:.3f} s (one process)")
+    for backend in CONFIG5_BACKENDS:
+        rs = out[backend]
+        if len(rs) != world:
+            log(f"FAIL: config #5 {backend}: a rank failed")
+            ok = False
+            continue
+        img = torch.as_tensor(np.load(
+            f"{tmp}/geo_{backend}_{world}_color.npy"), device=dev)
+        close, mrel = _sharded_close(img, ref)
+        img_ok = (close > SHARD_CLOSE_SHARE and mrel <= SHARD_MEAN_RTOL
+                  and bool(torch.isfinite(img).all()))
+        ok &= img_ok
+        half = all(abs(r["soup_bytes"] / r["unsharded_soup_bytes"]
+                       - 1.0 / world) < 0.01 for r in rs)
+        grad_faces = sum(r["grad"]["faces_nonzero"] for r in rs)
+        ok &= half and grad_faces > 0
+        log(f"config #5 [{backend}] {W5}x{H5} spp=1 bounces=5 nee on "
+            f"{world} ranks over {comm_backend} on "
+            f"{torch.cuda.device_count()} card(s): "
+            f"channels_close={close:.5f} mean_rel={mrel:.3e} vs the "
+            f"unsharded frame {'OK' if img_ok else 'FAIL'}; soup bytes "
+            f"a rank {[r['soup_bytes'] for r in rs]} of "
+            f"{rs[0]['unsharded_soup_bytes']} unsharded "
+            f"{'OK' if half else 'FAIL'}; faces with a 1080p vertex "
+            f"gradient {grad_faces} {'OK' if grad_faces else 'FAIL'}"
+            + (f"; cluster K={rs[0]['cluster']['K']} "
+               f"C={rs[0]['cluster']['C']} depth="
+               f"{rs[0]['cluster']['depth']} entry="
+               f"{rs[0]['cluster']['entry']}" if backend == "cluster"
+               else ""))
+        for r in rs:
+            f, st, gc = r["frame"], r["grad_step"], r["grad_check"]
+            tr = f["transport"]
+            log(f"  rank {r['rank']}: shard_s={r['shard_s']:.3f} "
+                f"allocated_bytes={r['allocated_bytes']} frame_s="
+                f"{f['seconds']:.4f} peak_mem_bytes={f['peak_mem_bytes']} "
+                f"launches={f['launches']} hops="
+                f"{tr['hops']} hop_bytes={tr['hop_bytes']} gathers="
+                f"{tr['gathers']} staging_s={tr['staging_s']:.4f} "
+                f"staged_bytes={tr['staged_bytes']} | 1080p vertex gradient "
+                f"step_s={st['seconds']:.4f} peak_mem_bytes="
+                f"{st['peak_mem_bytes']} hops={st['transport']['hops']} "
+                f"staging_s={st['transport']['staging_s']:.4f} grad="
+                f"{r['grad']} | 32x32 kernel vs plain loss_rel="
+                f"{gc['loss_rel']:.3e} rel_l2={gc['rel_l2']} cos="
+                f"{gc['cos']} {'OK' if r['ok'] else 'FAIL'}")
+    return ok, out
+
+
+def step_free_frame(params, cam, width, height):
+    """A frame rendered in 2^21-pixel tiles (render_pixels)."""
+    from visionaray_torch.sched.render import _render_frame
+    return _render_frame(params, cam, width, height, "pathtracing", SPP,
+                         "jittered_blend", 1 << 21, 2, nee=True)
+
+
 def profile_run(run, label, table_path=None):
-    """``--profile``: torch.profiler over one ``run()`` (a frame or a
-    training step); prints the device busy share and the top kernels by
-    device time.  ``--profile-table=PATH`` also writes the profiler's full
-    operator table to PATH."""
+    """torch.profiler over one ``run()`` (a frame or a training step);
+    prints the device busy share and the top kernels by device time and
+    returns the numbers (``--profile`` runs it on the paths of phases
+    3-20; phases 22-23 on each rank's frame).  ``--profile-table=PATH``
+    also writes the profiler's full operator table to PATH."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -2397,15 +2963,21 @@ def profile_run(run, label, table_path=None):
               "sort": ("Sort", "sort", "Radix", "radix"),
               "gather_scatter": ("gather", "index", "scatter", "Index"),
               "reduce": ("reduce_kernel",),
-              "cat_copy": ("Cat", "copy", "Memcpy", "Memset")}
+              "cat_copy": ("Cat", "copy", "Memcpy", "Memset"),
+              # NCCL's kernels run on their own stream, beside the
+              # compute: with them the busy sum can exceed the wall time
+              "nccl": ("nccl",)}
     sums = dict.fromkeys(list(groups) + ["elementwise_other"], 0.0)
     for e in dev_rows:
         g = next((k for k, keys in groups.items()
                   if any(s in e.key for s in keys)), "elementwise_other")
         sums[g] += dev_us(e) / 1e6
     busy_s = sum(sums.values())
+    # the idle share is that of the compute stream: NCCL's kernels, on
+    # their own stream, count as busy for as long as a rank waits in them
+    idle = 1 - (busy_s - sums["nccl"]) / wall_s
     log(f"profile: {label} wall_s={wall_s:.4f} device_busy_s={busy_s:.4f} "
-        f"idle_share={1 - busy_s / wall_s:.4f} kernels_launched="
+        f"idle_share={idle:.4f} (NCCL's stream left out) kernels_launched="
         f"{sum(e.count for e in dev_rows)} | "
         + " ".join(f"{k}={v:.4f}" for k, v in sums.items()))
     for e in dev_rows[:12]:
@@ -2416,6 +2988,8 @@ def profile_run(run, label, table_path=None):
                     else "self_cuda_time_total")
         with open(table_path, "w") as f:
             f.write(ka.table(sort_by=sort_key, row_limit=80))
+    return dict(wall_s=wall_s, device_busy_s=busy_s, idle_share=idle,
+                groups=sums)
 
 
 def main() -> int:
@@ -2716,6 +3290,15 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp, torch.no_grad():
         good, slice10["cli"] = cli_phase(dev, tmp)
     all_ok &= good
+    # ---- phases 22-23: parallel/, ranks spawned here (the library is
+    # built: they load it)
+    slice11 = {}
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        good, slice11["tile"] = tile_phase(params, cam, dev, tmp)
+        all_ok &= good
+        good, slice11["config5"] = config5_phase(dev, tmp, entries)
+        all_ok &= good
     flat10 = {"volume_step_s": slice10["volume_grad"]["step_s"],
               "multi_volume_step_s":
                   slice10["multi_volume_grad"]["step_s"],
@@ -2776,6 +3359,7 @@ def main() -> int:
                     "switch_frames": switch_frames, **slice7,
                     **flat8, "lbvh_slice": slice8, **flat9,
                     "slice9": slice9, **flat10, "slice10": slice10,
+                    "slice11": slice11,
                     "build_s": info["seconds"]}))
     log(f"card: {smi}")
     if not all_ok:
@@ -2788,4 +3372,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--rank-worker"]:
+        sys.exit(rank_worker(sys.argv[2:]))
     sys.exit(main())

@@ -8,8 +8,8 @@ the launch counts of render(algo="volume"); and the backward kernel
 the demo scenes and on tables too large for a block's default 48 KiB of
 shared memory (the transfer gradient alone, no texel atomics), the
 refusal of tables larger than a block may hold, the tie rule of the
-opacity clip at a = 0, and the refusal of gradients to rays and boxes
-(ROADMAP item 6c).
+opacity clip at a = 0, and the gradients to rays and boxes (``o``, ``d``,
+``lo``, ``hi``) of a loss that reads colour and depth.
 
 Marked ``cuda``: each test skips itself when torch.cuda.is_available() is
 False (decided inside the fixture, never at import).  On a GPU machine:
@@ -20,7 +20,9 @@ The kernel is built with -fmad=false and follows the plain version's
 operation order, so hit and depth must be equal and the colour within
 1e-5 (bit-equal is expected).  The backward kernel's texel and transfer
 gradients must be within relative L2 1e-4 of the plain version's, the
-background's within 1e-5 relative (its atomic adds reorder the sums).
+background's within 1e-5 relative (its atomic adds reorder the sums);
+the ray and box gradients within relative L2 1e-4 at a cosine of at
+least 0.9999, as the texels' are held in chip_smoke.py.
 """
 
 import dataclasses
@@ -105,7 +107,7 @@ def test_step_cap(cuda):
     assert steps.tolist() == [tvol.MAX_STEPS, tvol.MAX_STEPS]
 
 
-def test_render_launches_once_and_refuses_grad(cuda):
+def test_render_launches_once(cuda):
     scene, cam = volume_demo.volume_scene(32, device=cuda)
     trav.reset_launch_counts()
     rt = trender.render(scene, cam, 64, 64, algo="volume")
@@ -114,18 +116,48 @@ def test_render_launches_once_and_refuses_grad(cuda):
     assert trav.ENTRY_LAUNCHES["vsnray_volume_march"] == 1
     assert sum(trav.LAUNCHES.values()) == 1
     assert bool(torch.isfinite(rt.color).all())
-    # rays and boxes have no gradient on the card yet (item 6c)
-    x, y = _pixel_grid(8, 8, cuda)
-    ray = cam.primary_rays(x, y, 8, 8)
+
+
+def _cos(a, b):
+    a, b = a.double().reshape(-1), b.double().reshape(-1)
+    return float(a @ b / (a.norm() * b.norm()))
+
+
+@pytest.mark.parametrize("make", [
+    lambda dev: volume_demo.volume_scene(32, device=dev),
+    lambda dev: volume_demo.multi_volume_scene(32, 3, device=dev)],
+    ids=["single", "multi"])
+def test_backward_ray_and_box_gradients(cuda, make):
+    """One backward launch gives dL/do, dL/dd, dL/dlo and dL/dhi of a loss
+    over colour and depth, against the plain version's autograd."""
+    scene, cam = make(cuda)
+    x, y = _pixel_grid(48, 48, cuda)
+    ray = cam.primary_rays(x, y, 48, 48)
+    rng = np.random.default_rng(4)
+    w = torch.tensor(rng.uniform(-1.0, 1.0, (48 * 48, 4)).astype(np.float32),
+                     device=cuda)
+    wd = torch.tensor(rng.uniform(-1.0, 1.0, 48 * 48).astype(np.float32),
+                      device=cuda)
     bg = torch.tensor(BG, device=cuda)
-    vols = scene.volumes
-    for name in ("o", "d", "lo", "hi"):
-        o, d = ray.ori.clone(), ray.dir.clone()
-        v = dataclasses.replace(vols, lo=vols.lo.clone(), hi=vols.hi.clone())
-        target = {"o": o, "d": d, "lo": v.lo, "hi": v.hi}[name]
-        target.requires_grad_()
-        with pytest.raises(NotImplementedError, match="6c"):
-            tvol.volume_march(o, d, v, bg)
+    grads = []
+    trav.reset_launch_counts()
+    for march in (tvol.volume_march, tvol.march_plain):
+        leaves = [ray.ori.detach().clone().requires_grad_(),
+                  ray.dir.detach().clone().requires_grad_(),
+                  scene.volumes.lo.clone().requires_grad_(),
+                  scene.volumes.hi.clone().requires_grad_()]
+        vols = dataclasses.replace(scene.volumes, lo=leaves[2],
+                                   hi=leaves[3])
+        color, _, depth = march(leaves[0], leaves[1], vols, bg)
+        ((color * w).sum() + (depth * wd).sum()).backward()
+        grads.append([x.grad for x in leaves])
+    torch.cuda.synchronize()
+    assert trav.LAUNCHES["volume_march_bwd"] == 1
+    for got, ref in zip(*grads):
+        assert bool(torch.isfinite(got).all())
+        assert float(ref.abs().max()) > 0
+        assert _rel(got, ref) <= 1e-4
+        assert _cos(got, ref) >= 0.9999
 
 
 def _rel(a, b):

@@ -5,7 +5,12 @@ plain version (``kernels/volume.py::march_plain``) under autograd.
 The loss is ``sum(color * w)`` with weights from a numpy seed over the
 primary rays of the JAX camera (carried across as numpy), so both sides
 march the same rays.  Texel, transfer and background gradients must agree
-to relative L2 1e-5.
+to relative L2 1e-5.  The gradients with respect to the rays and the
+boxes (``o``, ``d``, ``lo``, ``hi``: through the sample positions, the
+step ``dt`` and the slab entry) are taken of a loss that reads colour and
+depth, ``sum(color * w) + sum(depth * wd)``, and must agree to relative L2
+1e-4, all finite (measured 1.1e-6 to 5.3e-6: the sums run in another
+order).
 
 At an argument exactly on a bound, ``jnp.clip``'s gradient is 0.5 (its
 ``maximum``/``minimum`` split ties evenly); ``torch.clamp``'s is 1.  Both
@@ -131,3 +136,54 @@ def test_clip_tie_takes_half_the_gradient():
     # taps at entries 0 and 1: 3.2 in all, and half of it at the tie
     np.testing.assert_allclose(jtr[0, 0, 3] + jtr[0, 1, 3], 1.6, rtol=1e-5)
     assert (jtr[0, 2:, 3] == 0).all()
+
+
+REL_L2_RAYS = 1e-4
+
+
+def _jax_ray_grads(jvols, o, d, w, wd):
+    def loss(o, d, lo, hi):
+        vols = dataclasses.replace(jvols, lo=lo, hi=hi)
+        params = JParams.create(JScene.create(volumes=vols), bg_color=BG)
+        rec = jvol.volume_kernel(params, JRay(ori=o, dir=d))
+        return jnp.sum(rec.color * w) + jnp.sum(rec.depth * wd)
+
+    g = jax.grad(loss, argnums=(0, 1, 2, 3))(
+        jnp.asarray(o), jnp.asarray(d), jvols.lo, jvols.hi)
+    return [np.asarray(x) for x in g]
+
+
+def _torch_ray_grads(tvols, o, d, w, wd):
+    leaves = [torch.as_tensor(o).clone().requires_grad_(),
+              torch.as_tensor(d).clone().requires_grad_(),
+              tvols.lo.clone().requires_grad_(),
+              tvols.hi.clone().requires_grad_()]
+    vols = dataclasses.replace(tvols, lo=leaves[2], hi=leaves[3])
+    color, _, depth = tvol.volume_march(
+        leaves[0], leaves[1], vols, torch.tensor(BG, dtype=torch.float32))
+    ((color * torch.as_tensor(w)).sum()
+     + (depth * torch.as_tensor(wd)).sum()).backward()
+    return [x.grad.numpy() for x in leaves]
+
+
+@pytest.fixture(scope="module", params=list(SCENES))
+def ray_grads(request):
+    jmake, tmake = SCENES[request.param]
+    (js, jcam), (ts, _) = jmake(), tmake()
+    o, d = _rays(jcam)
+    rng = np.random.default_rng(4)
+    w = rng.uniform(-1.0, 1.0, (o.shape[0], 4)).astype(np.float32)
+    wd = rng.uniform(-1.0, 1.0, o.shape[0]).astype(np.float32)
+    return (_jax_ray_grads(js.volumes, o, d, w, wd),
+            _torch_ray_grads(ts.volumes, o, d, w, wd))
+
+
+@pytest.mark.parametrize("name", ["o", "d", "lo", "hi"])
+def test_ray_and_box_gradients_match_jax(ray_grads, name):
+    """Item 6c on the CPU: the plain version's gradients with respect to
+    the rays and the boxes against jax.grad of the JAX volume kernel."""
+    k = ["o", "d", "lo", "hi"].index(name)
+    ref, got = ray_grads[0][k], ray_grads[1][k]
+    assert np.isfinite(got).all() and np.isfinite(ref).all()
+    assert np.abs(ref).max() > 0
+    assert rel_l2(got, ref) <= REL_L2_RAYS, rel_l2(got, ref)

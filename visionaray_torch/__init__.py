@@ -17,7 +17,7 @@ from visionaray_torch.core.camera import MatrixCamera, Pinhole
 from visionaray_torch.core.scene import Planes, Scene, Spheres, TriangleMesh
 from visionaray_torch.core.types import AABB, HitRecord, Ray, ResultRecord
 from visionaray_torch.device import resolve_device
-from visionaray_torch.sched.render import RenderTarget, render
+from visionaray_torch.sched.render import RenderTarget, SchedParams, render
 from visionaray_torch.shading.lights import PointLights
 from visionaray_torch.shading.materials import Materials, MaterialType
 
@@ -26,5 +26,5 @@ __all__ = [
     "Pinhole", "MatrixCamera",
     "Scene", "TriangleMesh", "Spheres", "Planes",
     "Materials", "MaterialType", "PointLights",
-    "render", "RenderTarget", "resolve_device",
+    "render", "RenderTarget", "SchedParams", "resolve_device",
 ]

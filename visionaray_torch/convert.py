@@ -122,6 +122,41 @@ def volumes_from_arrays(d: dict, device="cuda") -> Volumes:
     return _build(Volumes, d, resolve_device(device))
 
 
+def sharded_geometry_from_arrays(d: dict, device="cuda", shards=None):
+    """A ``parallel.ring.ShardedGeometry`` from the JAX one's leaves:
+    ``soup`` (a dict of (D, per, ...) arrays), ``prim_ids``, ``shard_lo``,
+    ``shard_hi``, ``bvh`` (a dict whose arrays carry the leading shard
+    axis of JAX's vmapped build, its static fields plain values; None for
+    brute force), ``backend``, ``prims_per_shard`` and ``num_shards``.
+    ``shards``: the shard indices to keep (all when None)."""
+    from visionaray_torch.parallel.ring import ShardedGeometry, SoupMesh
+    dev = resolve_device(device)
+    D = int(d["num_shards"])
+    keep = tuple(range(D)) if shards is None else tuple(int(i)
+                                                        for i in shards)
+
+    def pick(a):
+        return None if a is None else _tensor(np.asarray(a)[list(keep)],
+                                              dev)
+
+    soup = d["soup"]
+    bvh = None
+    if d.get("bvh") is not None:
+        b = d["bvh"]
+        build = bvh_from_arrays if "node_lo" in b else cluster_bvh_from_arrays
+        bvh = [build({k: (np.asarray(v)[i] if v is not None
+                          and np.ndim(v) > 0 else v) for k, v in b.items()},
+                     dev) for i in keep]
+    return ShardedGeometry(
+        soup=SoupMesh(**{k: pick(soup.get(k)) for k in (
+            "v1", "e1", "e2", "geom_ids", "corner_normals", "tex_coords")}),
+        prim_ids=pick(d["prim_ids"]).to(torch.int32),
+        shard_lo=pick(d["shard_lo"]), shard_hi=pick(d["shard_hi"]),
+        bvh=bvh, backend=str(d["backend"]),
+        prims_per_shard=int(d["prims_per_shard"]), num_shards=D,
+        shard_ids=keep)
+
+
 def scene_from_arrays(mesh=None, materials=None, lights=None, spheres=None,
                       planes=None, bvh=None, device="cuda",
                       sphere_bvh=None, textures=None, volumes=None) -> Scene:

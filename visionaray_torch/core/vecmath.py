@@ -62,6 +62,14 @@ def saturate(x):
     return torch.clamp(x, 0.0, 1.0)
 
 
+def vec3(x, y, z, dtype=torch.float32, device=None):
+    return torch.tensor([x, y, z], dtype=dtype, device=device)
+
+
+def vec4(x, y, z, w, dtype=torch.float32, device=None):
+    return torch.tensor([x, y, z, w], dtype=dtype, device=device)
+
+
 def orthonormal_basis(w):
     """(u, v) completing w to an ONB, the reference's BRDF sampling frame:
 

@@ -135,9 +135,13 @@ def _checkpointed(body):
 def pathtrace_loop(ray: Ray, sampler: Sampler, *, num_bounces: int,
                    tracer, tracer0=None, lights, nc: int, amb3, bg_color,
                    eps, nee: bool,
-                   reversed_shadow: bool = True) -> ResultRecord:
+                   reversed_shadow: bool = True,
+                   recompute: bool = True) -> ResultRecord:
     """The bounce loop, generic over the tracer; ``tracer0`` (if given)
-    handles bounce 0 only."""
+    handles bounce 0 only.  ``recompute``: under autograd, each bounce is
+    checkpointed and recomputed in backward (replaying its traversals);
+    the ring tracer of parallel/sharded_pt.py turns it off, since its
+    traces are collective and must not run again in one rank's backward."""
     batch = ray.batch_shape
     dev = ray.dir.device
     amb3 = torch.as_tensor(amb3, dtype=torch.float32, device=dev)
@@ -202,8 +206,8 @@ def pathtrace_loop(ray: Ray, sampler: Sampler, *, num_bounces: int,
         return (ray, sampler, active, dst, acc, first_hit, first_t,
                 prev_delta)
 
-    step = _checkpointed(bounce_body) if torch.is_grad_enabled() \
-        else bounce_body
+    step = _checkpointed(bounce_body) \
+        if recompute and torch.is_grad_enabled() else bounce_body
     carry = (ray, sampler,
              torch.ones(batch, dtype=torch.bool, device=dev),
              torch.ones(batch + (nc,), dtype=torch.float32, device=dev),

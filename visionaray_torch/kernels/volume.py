@@ -23,18 +23,17 @@ The march runs through ``volume_march``:
   every one of the 512 masked steps of every rank.
 
 Gradients: the plain version is differentiable with respect to texels,
-transfer, background and rays.  On the card, where the texels, the
-transfer or the background require grad, the forward also saves each
-ray's composite before the background (it cannot be recovered from the
-colour where bg.a = 1), and the backward is one launch of
-``vsnray_volume_march_bwd`` (``ops/cuda/volume_march_bwd.cu``: each ray
-marched again, texel and transfer gradients by atomic adds; counted in
-``LAUNCHES["volume_march_bwd"]`` and its entry point) and a PyTorch
-reduction for the background.  Atomic float adds make those gradients
-vary in their last bits from run to run.  Gradients with respect to the
-rays and the boxes (``o``, ``d``, ``lo``, ``hi``) have no kernel yet:
-``volume_march`` refuses CUDA inputs that require them (ROADMAP queue 1,
-item 6c).
+transfer, background, rays and boxes.  On the card, where any of them
+requires grad, the forward also saves each ray's composite before the
+background (it cannot be recovered from the colour where bg.a = 1), and
+the backward is one launch of ``vsnray_volume_march_bwd``
+(``ops/cuda/volume_march_bwd.cu``: each ray marched again; texel,
+transfer and box gradients by atomic adds, the rays' own by their
+threads; counted in ``LAUNCHES["volume_march_bwd"]`` and its entry point)
+and a PyTorch reduction for the background.  The depth (the least entry
+of the boxes hit) is the kernel's value; its gradient to rays and boxes
+is the plain slab test's under autograd.  Atomic adds make those
+gradients vary in their last bits from run to run.
 """
 
 from __future__ import annotations
@@ -140,6 +139,21 @@ def _tex1d_multi(transfer, vi, u):
     return (1 - fx) * fetch(x0) + fx * fetch(x0 + 1)
 
 
+def _entries(o, d, lo, hi):
+    """Entry and exit of every box, (V, N) each: (tn, tf, hit), and the
+    rays' (any_hit, depth), depth the least tn of the boxes hit, else 0."""
+    inv_d = 1.0 / d
+    tn_all, tf_all, hit_all = intersect_aabb(o[None], inv_d[None],
+                                             lo[:, None], hi[:, None])
+    tn_all = torch.maximum(tn_all, torch.zeros_like(tn_all))
+    hit_all = hit_all & (tf_all >= tn_all)
+    inf = torch.full_like(tn_all, float("inf"))
+    any_hit = torch.any(hit_all, dim=0)
+    depth = torch.amin(torch.where(hit_all, tn_all, inf), dim=0)
+    depth = torch.where(any_hit, depth, 0.0)
+    return tn_all, tf_all, hit_all, any_hit, depth
+
+
 def march_plain(o, d, volumes: Volumes, bg, step_scale: float = 1.0,
                 early_exit: bool = False):
     """The march of lanes ``o``, ``d`` (N, 3) through ``volumes``: (color
@@ -150,17 +164,8 @@ def march_plain(o, d, volumes: Volumes, bg, step_scale: float = 1.0,
     texels, transfer = volumes.texels, volumes.transfer
     V = lo.shape[0]
     dst = torch.zeros((o.shape[0], 4), dtype=torch.float32, device=o.device)
-    inv_d = 1.0 / d
-
-    # entry and exit of every volume: (V, N)
-    tn_all, tf_all, hit_all = intersect_aabb(o[None], inv_d[None],
-                                             lo[:, None], hi[:, None])
-    tn_all = torch.maximum(tn_all, torch.zeros_like(tn_all))
-    hit_all = hit_all & (tf_all >= tn_all)
+    tn_all, tf_all, hit_all, any_hit, depth = _entries(o, d, lo, hi)
     inf = torch.full_like(tn_all, float("inf"))
-    any_hit = torch.any(hit_all, dim=0)
-    depth = torch.amin(torch.where(hit_all, tn_all, inf), dim=0)
-    depth = torch.where(any_hit, depth, 0.0)
     order = torch.argsort(torch.where(hit_all, tn_all, inf), dim=0,
                           stable=True)
 
@@ -249,36 +254,47 @@ def _launch(o, d, volumes: Volumes, bg, step_scale, steps=None,
     return color, hit, depth, dst
 
 
+_GRADS = ("o", "d", "lo", "hi", "texels", "transfer")
+
+
 def march_backward(o, d, volumes: Volumes, bg, dst, gcolor,
-                   step_scale: float = 1.0, texels_grad: bool = True,
-                   transfer_grad: bool = True):
-    """(dL/dtexels, dL/dtransfer) of one march from its saved composite
-    ``dst`` (N, 4) and ``gcolor`` = dL/dcolor (N, 4): one launch of
-    vsnray_volume_march_bwd on CUDA tensors (it marches each ray again).
-    A gradient not asked for (``texels_grad``, ``transfer_grad``) is None
-    and costs the kernel none of its atomics.  The kernel sums the transfer
-    gradient in a block's shared memory: it refuses tables of more entries
-    (V * T * 4) than that holds in f64 (29,056 on the H100)."""
+                   step_scale: float = 1.0, wanted=_GRADS):
+    """The gradients of one march's colour, a dict over the names in
+    ``wanted`` (of ``o``, ``d`` (N, 3), ``lo``, ``hi`` (V, 3), ``texels``,
+    ``transfer``), from its saved composite ``dst`` (N, 4) and ``gcolor``
+    = dL/dcolor (N, 4): one launch of vsnray_volume_march_bwd on CUDA
+    tensors (it marches each ray again).  A gradient not asked for costs
+    the kernel none of its atomics.  The kernel sums the transfer and box
+    gradients in a block's shared memory: it refuses tables of more
+    entries (V * T * 4 + V * 6) than that holds in f64 (29,056 on the
+    H100)."""
     if o.device.type != "cuda":
         raise ValueError(f"march_backward: no kernel for {o.device}")
     n = o.shape[0]
-    gtexels = torch.zeros(tuple(volumes.texels.shape), dtype=torch.float32,
-                          device=o.device) if texels_grad else None
-    # the transfer entries sum millions of terms: the kernel adds in f64
-    gtransfer = torch.zeros(tuple(volumes.transfer.shape),
-                            dtype=torch.float64, device=o.device) \
-        if transfer_grad else None
+    V, D, H, W = volumes.texels.shape
+
+    def zeros(want, shape, dtype=torch.float32):
+        return torch.zeros(tuple(shape), dtype=dtype, device=o.device) \
+            if want else None
+
+    out = {"texels": zeros("texels" in wanted, volumes.texels.shape),
+           # the transfer entries and the boxes sum millions of terms: the
+           # kernel adds them in f64
+           "transfer": zeros("transfer" in wanted, volumes.transfer.shape,
+                             torch.float64),
+           "o": zeros("o" in wanted, o.shape),
+           "d": zeros("d" in wanted, d.shape)}
+    gbox = zeros("lo" in wanted or "hi" in wanted, (V, 6), torch.float64)
     if n > 0:
-        V, D, H, W = volumes.texels.shape
         args = [x.detach().contiguous() for x in (
             o, d, volumes.lo, volumes.hi, volumes.texels, volumes.transfer,
             bg, dst, gcolor.to(torch.float32))]
+        outs = [out["texels"], out["transfer"], out["o"], out["d"], gbox]
         with torch.cuda.device(o.device):
             stream = torch.cuda.current_stream(o.device).cuda_stream
             err = trav._library().vsnray_volume_march_bwd(
                 *[x.data_ptr() for x in args],
-                None if gtexels is None else gtexels.data_ptr(),
-                None if gtransfer is None else gtransfer.data_ptr(),
+                *[None if x is None else x.data_ptr() for x in outs],
                 n, V, D, H, W, volumes.transfer.shape[1], float(step_scale),
                 stream)
         if err != 0:
@@ -288,12 +304,17 @@ def march_backward(o, d, volumes: Volumes, bg, dst, gcolor,
                 f"sums at most its shared memory's worth of f64)")
         trav.LAUNCHES["volume_march_bwd"] += 1
         trav.ENTRY_LAUNCHES[ENTRY_BWD] += 1
-    return gtexels, None if gtransfer is None else gtransfer.float()
+    if out["transfer"] is not None:
+        out["transfer"] = out["transfer"].float()
+    if gbox is not None:
+        out["lo"], out["hi"] = gbox[:, :3].float(), gbox[:, 3:].float()
+    return {k: out[k] for k in wanted}
 
 
 class _KernelMarch(torch.autograd.Function):
-    """The card's march with its backward kernel: gradients with respect
-    to texels, transfer and background; none to rays or boxes."""
+    """The card's march with its backward kernel: the colour's gradients
+    with respect to rays, boxes, texels, transfer and background (the
+    depth is returned without one: ``volume_march`` adds it)."""
 
     @staticmethod
     def forward(ctx, o, d, lo, hi, texels, transfer, bg, step_scale):
@@ -309,16 +330,15 @@ class _KernelMarch(torch.autograd.Function):
     def backward(ctx, gcolor, _ghit, _gdepth):
         o, d, lo, hi, texels, transfer, bg, dst = ctx.saved_tensors
         need = ctx.needs_input_grad
-        gtex = gtr = gbg = None
-        if need[4] or need[5]:
-            gtex, gtr = march_backward(
+        wanted = tuple(k for k, w in zip(_GRADS, need[:6]) if w)
+        grads = {}
+        if wanted:
+            grads = march_backward(
                 o, d, Volumes(lo=lo, hi=hi, texels=texels,
                               transfer=transfer),
-                bg, dst, gcolor, ctx.step_scale, texels_grad=need[4],
-                transfer_grad=need[5])
-        if need[6]:
-            gbg = ((1.0 - dst[:, 3:4]) * gcolor).sum(dim=0)
-        return None, None, None, None, gtex, gtr, gbg, None
+                bg, dst, gcolor, ctx.step_scale, wanted)
+        gbg = ((1.0 - dst[:, 3:4]) * gcolor).sum(dim=0) if need[6] else None
+        return (*[grads.get(k) for k in _GRADS], gbg, None)
 
 
 def volume_march(o, d, volumes: Volumes, bg, step_scale: float = 1.0,
@@ -326,35 +346,32 @@ def volume_march(o, d, volumes: Volumes, bg, step_scale: float = 1.0,
     """(color (N, 4), hit (N,), depth (N,)) of lanes ``o``, ``d`` (N, 3)
     f32.  CUDA tensors launch the kernel (``steps``: an optional (N,) int32
     tensor it fills with each ray's steps taken), and its backward kernel
-    where texels, transfer or bg require grad; CPU tensors run
-    ``march_plain``."""
+    where rays, boxes, texels, transfer or bg require grad; CPU tensors
+    run ``march_plain``."""
     _check(o, d, volumes, bg)
     if o.device.type == "cpu":
         return march_plain(o, d, volumes, bg, step_scale)
     if o.device.type != "cuda":
         raise ValueError(f"volume_march: no kernel for {o.device}")
-    grad = torch.is_grad_enabled()
-    if grad and any(x.requires_grad
-                    for x in (o, d, volumes.lo, volumes.hi)):
-        raise NotImplementedError(
-            "volume_march: the CUDA march has no gradient with respect to "
-            "rays or boxes (o, d, lo, hi) yet (ROADMAP queue 1, item 6c); "
-            "texels, transfer and bg are differentiable on the card, all "
-            "of them on the CPU, where the plain version runs")
     if steps is not None and (tuple(steps.shape) != (o.shape[0],)
                               or steps.dtype != torch.int32
                               or steps.device != o.device):
         raise ValueError("volume_march: steps must be int32 (n,) on the "
                          "rays' device")
-    if grad and any(x.requires_grad
-                    for x in (volumes.texels, volumes.transfer, bg)):
-        if steps is not None:
-            raise ValueError("volume_march: the counting form takes no "
-                             "gradient")
-        return _KernelMarch.apply(o, d, volumes.lo, volumes.hi,
-                                  volumes.texels, volumes.transfer, bg,
-                                  float(step_scale))
-    return _launch(o, d, volumes, bg, step_scale, steps)[:3]
+    inputs = (o, d, volumes.lo, volumes.hi, volumes.texels,
+              volumes.transfer, bg)
+    if not (torch.is_grad_enabled() and any(x.requires_grad
+                                            for x in inputs)):
+        return _launch(o, d, volumes, bg, step_scale, steps)[:3]
+    if steps is not None:
+        raise ValueError("volume_march: the counting form takes no "
+                         "gradient")
+    color, hit, depth = _KernelMarch.apply(*inputs, float(step_scale))
+    if any(x.requires_grad for x in inputs[:4]):
+        # the kernel's depth, with the plain slab test's gradient
+        plain = _entries(o, d, volumes.lo, volumes.hi)[4]
+        depth = depth + (plain - plain.detach())
+    return color, hit, depth
 
 
 def volume_kernel(params, ray: Ray, sampler=None, volumes: Volumes = None,

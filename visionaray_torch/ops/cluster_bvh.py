@@ -36,6 +36,10 @@ from visionaray_torch.ops.lbvh import (
 )
 
 
+DEFAULT_CLUSTER_SIZE = 32
+DEFAULT_TREELET_SIZE = 32
+
+
 @dataclass
 class ClusterBVH:
     nodes: Any               # (2C-1, 8) f32 node table
@@ -50,6 +54,11 @@ class ClusterBVH:
     heap: bool = False       # children of i at 2i+1 / 2i+2
     half_boxes: bool = False  # records 0/1 cols 10..15: half-cluster AABBs
     depth: int = 0           # edges from the root to the deepest leaf
+
+    @property
+    def num_prims(self):
+        """Triangle slots, padding included (C * K)."""
+        return self.num_clusters * self.cluster_size
 
     def tri_records(self):
         """The packed table as (C, K, 16) records."""
@@ -106,7 +115,7 @@ def pick_cluster_size(num_prims: int) -> int:
     k = 8
     while (2 * -(-num_prims // k) - 1) * 28 > 750_000:
         k += 8
-    return max(k, 32)
+    return max(k, DEFAULT_CLUSTER_SIZE)
 
 
 def build_cluster_bvh(mesh, cluster_size: int = 0, treelet_size: int = 0,
@@ -116,14 +125,32 @@ def build_cluster_bvh(mesh, cluster_size: int = 0, treelet_size: int = 0,
     T = 0 one radix tree.  ``cluster_size`` 0 picks K automatically."""
     with torch.no_grad():
         v1, e1, e2 = mesh.corners()
+    return build_cluster_bvh_from_corners(v1, e1, e2,
+                                          cluster_size=cluster_size,
+                                          treelet_size=treelet_size,
+                                          sah_axis=sah_axis)
+
+
+def build_cluster_bvh_from_corners(v1, e1, e2, cluster_size: int = 0,
+                                   treelet_size: int = 0,
+                                   sah_axis: bool = True) -> ClusterBVH:
+    """``build_cluster_bvh`` over raw (v1, e1, e2) corner arrays, the entry
+    point of the per-shard soups of parallel/ring.py.  The tables are
+    built from detached corners."""
+    v1, e1, e2 = v1.detach(), e1.detach(), e2.detach()
     K = cluster_size or pick_cluster_size(v1.shape[0])
+    # prim ids ride the kernel as f32 values (exact only below 2^24):
+    # larger meshes must be geometry-sharded so each shard stays under it
     if v1.shape[0] >= (1 << 24):
         raise ValueError(
             f"ClusterBVH holds prim ids as f32 (exact < 2^24); got "
-            f"{v1.shape[0]} prims")
-    if treelet_size > 0:
-        return _build_kd_tree(v1, e1, e2, K, treelet_size, sah_axis=sah_axis)
-    return _build_single_tree(*_sorted_cluster_data(v1, e1, e2, K), K=K)
+            f"{v1.shape[0]} prims: shard the geometry instead "
+            f"(visionaray_torch.parallel.ring)")
+    with torch.no_grad():
+        if treelet_size > 0:
+            return _build_kd_tree(v1, e1, e2, K, treelet_size,
+                                  sah_axis=sah_axis)
+        return _build_single_tree(*_sorted_cluster_data(v1, e1, e2, K), K=K)
 
 
 def _build_single_tree(C, tri_cols, cl_lo, cl_hi, cl_codes, K: int):

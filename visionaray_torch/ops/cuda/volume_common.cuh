@@ -79,6 +79,9 @@ struct Sample {
   float c[4];          // the classified colour
   float z;             // the opacity before the clip: c.a * dt * D
   float al;            // the opacity after it
+  float u, v, w;       // where it samples, in the box's unit cube
+  float t;             // the ray parameter of the step: tn + dt * i
+  int i;               // the step's index in its box
 };
 
 // The flat index of texel (xi, yi, zi) of volume vol, and its trilinear
@@ -102,6 +105,9 @@ __device__ __forceinline__ void sample(const Grid& g, int vol, float u,
                                        float v, float w, float dt, float fD,
                                        Sample& s) {
   s.vol = vol;
+  s.u = u;
+  s.v = v;
+  s.w = w;
   const float x = u * static_cast<float>(g.W) - 0.5f;
   const float y = v * static_cast<float>(g.H) - 0.5f;
   const float z = w * static_cast<float>(g.D) - 0.5f;
@@ -142,7 +148,9 @@ __device__ __forceinline__ void sample(const Grid& g, int vol, float u,
 // or dst.a >= 0.999; the march breaks at the first such step instead (t
 // grows with i and dst.a never falls, so every later step would be
 // masked too).  After each step, step(sample, dt, om) is called with om =
-// 1 - dst.a before the step and dst already updated.
+// 1 - dst.a before the step and dst already updated; the sample carries
+// the step's t, index and unit-cube position, which the backward's ray
+// and box gradients read (the forward's step ignores them).
 template <class Step>
 __device__ __forceinline__ void march(const Grid& g, const Lane& r,
                                       float* dst, Step&& step) {
@@ -186,6 +194,8 @@ __device__ __forceinline__ void march(const Grid& g, const Lane& r,
       Sample s;
       sample(g, best, (px - lx) / ex, (py - ly) / ey, (pz - lz) / ez, dt,
              fD, s);
+      s.t = t;
+      s.i = i;
       const float om = 1.0f - dst[3];
       dst[0] = dst[0] + om * (s.c[0] * s.al);
       dst[1] = dst[1] + om * (s.c[1] * s.al);

@@ -210,9 +210,10 @@ def bind_library(lib_path) -> ctypes.CDLL:
             # rays, boxes, texels, transfer, bg, 3 outputs, dst, steps; n,
             # V, D, H, W, T; step_scale; the stream
             ("vsnray_volume_march", [p] * 12 + [i] * 6 + [f, p]),
-            # rays, boxes, texels, transfer, bg, dst, dL/dcolor, 2
-            # gradients; n, V, D, H, W, T; step_scale; the stream
-            ("vsnray_volume_march_bwd", [p] * 11 + [i] * 6 + [f, p])):
+            # rays, boxes, texels, transfer, bg, dst, dL/dcolor, 5
+            # gradients (texels, transfer, ori, dir, boxes); n, V, D, H,
+            # W, T; step_scale; the stream
+            ("vsnray_volume_march_bwd", [p] * 14 + [i] * 6 + [f, p])):
         fn = getattr(lib, entry, None)
         if fn is None:
             continue
@@ -680,9 +681,15 @@ class _HitTuv(torch.autograd.Function):
 def _hit_tuv(ray: Ray, mesh, pid, kt, ku, kv):
     """``_HitTuv`` when a gradient can reach the ray or the vertices, else
     the kernel's values as they are."""
-    if not (torch.is_grad_enabled() and (
-            ray.ori.requires_grad or ray.dir.requires_grad
-            or mesh.vertices.requires_grad)):
+    if not torch.is_grad_enabled():
+        return kt, ku, kv
+    # a TriangleMesh's corners derive from its vertices; a soup
+    # (parallel/ring.py) holds them
+    if hasattr(mesh, "vertices"):
+        mesh_grad = mesh.vertices.requires_grad
+    else:
+        mesh_grad = any(c.requires_grad for c in mesh.corners())
+    if not (ray.ori.requires_grad or ray.dir.requires_grad or mesh_grad):
         return kt, ku, kv
     v1, e1, e2 = mesh.corners()
     tbl = torch.cat([v1, e1, e2, torch.zeros(v1.shape[:-1] + (7,),

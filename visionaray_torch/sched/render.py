@@ -17,6 +17,7 @@ from typing import Any, Optional
 
 import torch
 
+from visionaray_torch.device import resolve_device
 from visionaray_torch.io.pixel_format import TypedRenderTarget, blend_device
 from visionaray_torch.kernels.ao import ao_kernel
 from visionaray_torch.kernels.params import KernelParams
@@ -67,6 +68,28 @@ class RenderTarget:
     depth: Any   # (H, W) f32
     width: int
     height: int
+
+    @staticmethod
+    def create(width: int, height: int, device="cuda") -> "RenderTarget":
+        """A cleared frame buffer on ``device``."""
+        dev = resolve_device(device)
+        return RenderTarget(
+            color=torch.zeros((height, width, 4), dtype=torch.float32,
+                              device=dev),
+            depth=torch.zeros((height, width), dtype=torch.float32,
+                              device=dev),
+            width=width, height=height)
+
+
+@dataclass(frozen=True)
+class SchedParams:
+    """The scheduler's parameters (make_sched_params, scheduler.h)."""
+
+    algo: str = "simple"
+    spp: int = 1
+    pixel_sampler: str = "uniform"   # uniform | ssaa | jittered |
+    #                                  jittered_blend
+    tile_size: int = 0               # 0 = the whole frame at once
 
 
 def _pixel_grid(width, height, device):

@@ -25,6 +25,14 @@ def cosine_sample_hemisphere(u1, u2):
     return torch.stack([x, y, z], dim=-1)
 
 
+def uniform_sample_hemisphere(u1, u2):
+    """r = sqrt(1 - u1^2), phi = 2 pi u2, z = u1 (reference
+    sampling.h)."""
+    r = torch.sqrt(torch.clamp_min(1.0 - u1 * u1, 0.0))
+    phi = TWO_PI * u2
+    return torch.stack([r * torch.cos(phi), r * torch.sin(phi), u1], dim=-1)
+
+
 def fresnel_reflectance_conductor(eta, k, cosi):
     """Conductor Fresnel; eta/k (..., 3), cosi (...)."""
     cosi = cosi[..., None]
@@ -34,6 +42,14 @@ def fresnel_reflectance_conductor(eta, k, cosi):
     rp2 = (e2k2 * cosi * cosi - 2.0 * eta * cosi + 1.0) / \
           (e2k2 * cosi * cosi + 2.0 * eta * cosi + 1.0)
     return (rs2 + rp2) / 2.0
+
+
+def fresnel_reflectance_dielectric(eta, cosi, cost):
+    """Dielectric Fresnel: the mean of the parallel and perpendicular
+    reflectances."""
+    rparl = (eta * cosi - cost) / (eta * cosi + cost)
+    rperp = (cosi - eta * cost) / (cosi + eta * cost)
+    return (rparl * rparl + rperp * rperp) / 2.0
 
 
 def lambertian_f(cd, kd):
@@ -48,6 +64,15 @@ def lambertian_sample_f(cd, kd, n, wo, u1, u2):
     wi = normalize(sp[..., 0:1] * u + sp[..., 1:2] * v + sp[..., 2:3] * n)
     pdf = dot(n, wi) * INV_PI
     return lambertian_f(cd, kd), wi, pdf
+
+
+def phong_f(cs, ks, exp, n, wo, wi):
+    """Phong: cs * ks (exp + 2) / (2 pi) * max(0, reflect(wo, n) . wi)^exp
+    (reference brdf.h)."""
+    r = reflect(wo, n)
+    rdotl = torch.clamp_min(dot(r, wi), 0.0)
+    scale = ks * ((exp + 2.0) / TWO_PI) * torch.pow(rdotl, exp)
+    return cs * scale[..., None]
 
 
 def blinn_f(cs, ks, exp, n, wo, wi):

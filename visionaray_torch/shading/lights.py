@@ -65,6 +65,10 @@ class PointLights:
         scale = self.kl[light_idx] / denom
         return self.cl[light_idx] * scale[..., None]
 
+    def sample(self, light_idx, u1=None, u2=None):
+        """A point light samples its own position."""
+        return self.position[light_idx]
+
 
 @dataclass
 class SpotLights:
@@ -111,6 +115,10 @@ class SpotLights:
         spot = torch.where(spot > self.cos_cutoff[light_idx],
                            torch.pow(spot, self.exponent[light_idx]), 0.0)
         return self.cl[light_idx] * (a * spot)[..., None]
+
+    def sample(self, light_idx, u1=None, u2=None):
+        """A spot light samples its own position."""
+        return self.position[light_idx]
 
 
 @dataclass
@@ -164,8 +172,11 @@ class AreaLights:
         base = self.cl[light_idx] * self.kl[light_idx]
         return base.expand(tuple(pos.shape[:-1]) + (3,))
 
-    def sample(self, light_idx, u1, u2):
-        """Uniform position on the triangle."""
+    def sample(self, light_idx, u1=None, u2=None):
+        """Uniform position on the triangle for uniforms ``u1``, ``u2``
+        (...,); without them, its centroid (``position``)."""
+        if u1 is None:
+            return self.position[light_idx]
         su = torch.sqrt(torch.clamp(u1, 0.0, 1.0))
         b1 = 1.0 - su
         b2 = u2 * su
