@@ -93,8 +93,10 @@ Phases, each of which fails the run (non-zero exit) when it fails:
 
 14. The LBVH, the CLI's default tree: sponza_like_scene(260_000) with its
     default build_bvh=True on the card (lbvh_scene_s; lbvh_build_s a
-    second build_lbvh timed alone; tables equal to the CPU build).  On it,
-    every search runs traverse_lbvh.cu, one thread per ray: (a) the simple
+    second build_lbvh timed alone; lbvh_pack_ms the kernel's node and
+    primitive records packed from its tables, which every launch on that
+    tree reuses; tables equal to the CPU build).  On it, every search runs
+    traverse_lbvh.cu, one thread per ray: (a) the simple
     frame, render(scene, cam, 1920, 1080) with defaults only
     (lbvh_simple_frame_s), exactly one lbvh_closest launch; (b) the 5-bounce
     NEE frame of phase 3 (lbvh_frame_s), its launches per mode; (c) the
@@ -170,7 +172,9 @@ Phases, each of which fails the run (non-zero exit) when it fails:
     finite and non-zero; the backward kernel's time by CUDA events (for
     texels and transfer, for the transfer alone, and for every gradient,
     rays and boxes included), its bound and ptxas' registers, stack and
-    spills.
+    spills, and the shared-memory adds its transfer gradient issued
+    (transfer_atomics, from the kernel's counting argument, in both
+    forms).
 21. The port's CLI, ``visionaray_torch.cli.main(argv)`` at 1920x1080,
     each run with its wall seconds, its launches (counts reset just
     before) and its check: (a) builtin:teapot, simple, on its LBVH;
@@ -1355,6 +1359,15 @@ def lbvh_bytes(ln):
     return n * 7 * 4 + sum(x.numel() * 4 for x in tables) + n * k * 8
 
 
+def lbvh_pack_ms(bvh, prim, tables):
+    """Milliseconds to pack a tree's node records and its primitive
+    records for traverse_lbvh.cu (ops/traversal.py pack_nodes and
+    pack_prims, as kernel_pack builds them once per BVH): set-up, not
+    part of a launch."""
+    return cuda_ms(lambda: (tt.pack_nodes(bvh),
+                            tt.pack_prims(bvh, prim, tables)), 3)
+
+
 def check_lbvh_mode(key, name, launches, count):
     """traverse_lbvh.cu vs its plain version on the captured launches of one
     mode: the first, a middle and the last launch compared on
@@ -1414,6 +1427,7 @@ def check_lbvh_mode(key, name, launches, count):
                        ops / PEAK_F32_S * 1e3))
         live_lanes.append(int((ln["max_t"] > 0).sum()))
     t_bytes, t_ops = bounds[0]
+    pack_ms = lbvh_pack_ms(first["bvh"], prim, first["tables"])
     ok = hit_mm == 0 and ref_mm == 0 and max_rel <= T_RTOL
     vkey = tt.leaf_variant_key(key, gen)
     log(f"kernel {name} [{vkey}, traverse_lbvh.cu]: compared launches "
@@ -1426,7 +1440,8 @@ def check_lbvh_mode(key, name, launches, count):
         f"({'bytes' if t_bytes >= t_ops else 'operations'}) | "
         f"{len(launches)} launches: ms_sum={sum(launch_ms):.4f} "
         f"bound_ms_sum={sum(max(b) for b in bounds):.4f} box_tests="
-        f"{tests[0]} prim_tests={tests[1]} {'OK' if ok else 'FAIL'}")
+        f"{tests[0]} prim_tests={tests[1]} lbvh_pack_ms={pack_ms:.4f} "
+        f"{'OK' if ok else 'FAIL'}")
     if len(launches) > 1:
         log(f"  launch ms {[round(t, 4) for t in launch_ms]} live lanes "
             f"{live_lanes}")
@@ -1445,6 +1460,7 @@ def check_lbvh_mode(key, name, launches, count):
         "kernel_ms_compare": kernel_cmp_ms, "hit_mismatch": hit_mm,
         "ref_mismatch": ref_mm, "max_rel_t": max_rel,
         "box_tests": tests[0], "prim_tests": tests[1],
+        "lbvh_pack_ms": pack_ms, "redesigned": 12,
         "launches_training_step": 0,
     }
 
@@ -1500,6 +1516,8 @@ def lbvh_phase(cpu_mesh, dev, entries):
     torch.cuda.synchronize()
     out["lbvh_build_s"] = time.perf_counter() - t0
     bvh = scene.bvh
+    out["lbvh_pack_ms"] = lbvh_pack_ms(
+        bvh, "triangle", tt.prim_tables("triangle", scene.mesh))
     cpu = build_lbvh(cpu_mesh)
     fields = ("node_lo", "node_hi", "left", "right", "parent", "prim_ids")
     same = (all(torch.equal(getattr(bvh, f).cpu(), getattr(cpu, f))
@@ -1509,7 +1527,8 @@ def lbvh_phase(cpu_mesh, dev, entries):
                lbvh_sah_cost=sah_cost(bvh))
     log(f"LBVH (sponza_like_scene default): tris={scene.num_triangles} "
         f"lbvh_scene_s={out['lbvh_scene_s']:.3f} lbvh_build_s="
-        f"{out['lbvh_build_s']:.3f} nodes={bvh.num_nodes} depth={bvh.depth} "
+        f"{out['lbvh_build_s']:.3f} lbvh_pack_ms={out['lbvh_pack_ms']:.4f} "
+        f"nodes={bvh.num_nodes} depth={bvh.depth} "
         f"sah_cost={out['lbvh_sah_cost']:.4f} tables_equal_to_cpu_build="
         f"{same}")
     ok = same and isinstance(bvh, type(cpu))
@@ -2206,6 +2225,13 @@ def volume_grad_phase(label, scene, cam, dev, entries, ptx):
             o, d, vols, bg, dst, gcolor, wanted=("transfer",)), 3)
         bwd_all_ms = cuda_ms(lambda: tvol.march_backward(
             o, d, vols, bg, dst, gcolor), 3)
+        # the shared-memory adds of the transfer gradient, in each form
+        tr_adds = [torch.zeros(1, dtype=torch.int64, device=dev)
+                   for _ in range(2)]
+        tvol.march_backward(o, d, vols, bg, dst, gcolor,
+                            wanted=("texels", "transfer"), counts=tr_adds[0])
+        tvol.march_backward(o, d, vols, bg, dst, gcolor, counts=tr_adds[1])
+        tr_adds = [int(x) for x in tr_adds]
         fwd_ms = cuda_ms(lambda: volume_march(o, d, vols, bg), 3)
     t_bytes = volume_bwd_bytes(n, vols) / PEAK_BYTES_S * 1e3
     atomic_bytes = volume_atomic_bytes(total)
@@ -2239,7 +2265,9 @@ def volume_grad_phase(label, scene, cam, dev, entries, ptx):
         f"{form_pos.get('spill')} rel_l2 "
         + " ".join(f"{k}={stats_all[k][0]:.3e}" for k in names)
         + f" | forward {fwd_ms:.4f} steps={total} texel_atomic_bytes="
-        f"{atomic_bytes} {'OK' if ok else 'FAIL'}")
+        f"{atomic_bytes} transfer_atomics={tr_adds[0]} (every gradient "
+        f"{tr_adds[1]}; at most {8 * total} without the thread and warp "
+        f"sums: 8 a step) {'OK' if ok else 'FAIL'}")
     entries.append({
         "name": f"volume_march_bwd_{label.replace(' ', '_')}",
         "route": "cuda", "source": VOLUME_BWD_SOURCE,
@@ -2253,6 +2281,9 @@ def volume_grad_phase(label, scene, cam, dev, entries, ptx):
         "library_ms": None, "lanes": n, "steps": total,
         "flop_step": FLOP_STEP_BWD, "bytes_ms": t_bytes, "ops_ms": t_ops,
         "texel_atomic_bytes": atomic_bytes,
+        "transfer_atomics": tr_adds[0],
+        "transfer_atomics_all_gradients": tr_adds[1],
+        "transfer_atomics_unsummed_max": 8 * total, "redesigned": 12,
         "ms_transfer_only": bwd_tr_ms, "texel_rel_l2": tex_rel,
         "texel_cos": tex_cos, "transfer_rel_l2": tr_rel,
         "transfer_cos": tr_cos, "bg_max_rel": bg_rel,
@@ -2277,6 +2308,7 @@ def volume_grad_phase(label, scene, cam, dev, entries, ptx):
                     all_gradients_rel_l2={k: stats_all[k][0]
                                           for k in names},
                     fwd_kernel_ms=fwd_ms, bound_ms=bound, steps=total,
+                    transfer_atomics=tr_adds[0],
                     texel_rel_l2=tex_rel, transfer_rel_l2=tr_rel,
                     launches=step_launches, plain_s=plain_s), vstep
 
@@ -2740,21 +2772,23 @@ def rank_worker(argv):
     from visionaray_torch.parallel import comm
     task, backend, tmp = argv
     multihost.initialize(backend=backend, device="cuda")
-    rank = torch.distributed.get_rank()
-    world = torch.distributed.get_world_size()
-    dev = torch.device("cuda", torch.cuda.current_device())
-    torch.backends.cuda.matmul.allow_tf32 = False
-    trav._library()   # built by the parent: the same hash, loaded here
-    res = dict(task=task, rank=rank, world=world, backend=backend)
-    if task == "tile":
-        ok = tile_worker(rank, world, dev, tmp, comm, res)
-    else:
-        ok = geo_worker(task.split("_", 1)[1], rank, world, dev, tmp, comm,
-                        res)
-    res["ok"] = bool(ok)
-    with open(f"{tmp}/{task}_{world}_{rank}.json", "w") as f:
-        json.dump(res, f)
-    torch.distributed.destroy_process_group()
+    try:
+        rank = torch.distributed.get_rank()
+        world = torch.distributed.get_world_size()
+        dev = torch.device("cuda", torch.cuda.current_device())
+        torch.backends.cuda.matmul.allow_tf32 = False
+        trav._library()   # built by the parent: the same hash, loaded here
+        res = dict(task=task, rank=rank, world=world, backend=backend)
+        if task == "tile":
+            ok = tile_worker(rank, world, dev, tmp, comm, res)
+        else:
+            ok = geo_worker(task.split("_", 1)[1], rank, world, dev, tmp,
+                            comm, res)
+        res["ok"] = bool(ok)
+        with open(f"{tmp}/{task}_{world}_{rank}.json", "w") as f:
+            json.dump(res, f)
+    finally:
+        multihost.shutdown()
     log(f"rank {rank}/{world} {task}: {'OK' if ok else 'FAIL'}")
     return 0 if ok else 1
 

@@ -43,7 +43,14 @@ def main():
     if args.devices > 1:
         multihost.initialize(device=args.device, backend=(
             multihost.local_backend(args.devices, args.device)))
+    try:
+        return run(args)
+    finally:
+        multihost.shutdown()
 
+
+def run(args):
+    """The optimization on this rank (its share of the pixels)."""
     from visionaray_torch.kernels.params import KernelParams
     from visionaray_torch.parallel.tile_sharding import (
         all_reduce_grads, make_mesh, render_image_sharded,

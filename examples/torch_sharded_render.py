@@ -34,7 +34,14 @@ def main():
         return int(any(multihost.spawn_local(args.devices)))
     multihost.initialize(device=args.device, backend=(
         multihost.local_backend(args.devices, args.device)))
+    try:
+        return run(args)
+    finally:
+        multihost.shutdown()
 
+
+def run(args):
+    """One rank's share of the frame; rank 0 writes the image."""
     from visionaray_torch.io.image import save_png
     from visionaray_torch.parallel.ring import shard_geometry
     from visionaray_torch.parallel.sharded_pt import (

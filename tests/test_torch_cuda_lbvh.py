@@ -3,7 +3,9 @@ PyTorch version, on the card, in every form: triangles closest, any and
 multi-hit (k = 1, 4, 16) on 1:1 leaves (LBVH, SAH), closest and any on
 generalized SBVH leaves, spheres closest and any; axis-aligned rays whose
 origins lie on box planes (the NaN slab case), dead lanes, a single-leaf
-tree, the counters and the launch counts.  Also: the LBVH built on the
+tree (1:1 and generalized), the counters and the launch counts; the packed
+records kept with a BVH and renewed after a refit, moved vertices or a
+replaced table.  Also: the LBVH built on the
 card equals the CPU build, table for table.
 
 Marked ``cuda``: each test skips itself when torch.cuda.is_available() is
@@ -14,6 +16,8 @@ False (decided inside the fixture, never at import).  On a GPU machine:
 The kernel is built with -fmad=false and follows the plain version's
 walk and operation order, so refs and t must be equal, bit for bit.
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -156,3 +160,50 @@ def test_counters(scene):
     assert int(cnt[dead].abs().sum()) == 0
     assert bool((cnt[~dead, 0] >= 2).all())
     assert bool((cnt[kr >= 0, 1] >= 1).all())
+
+
+def test_generalized_single_leaf(cuda, scene):
+    """A tree that is one generalized leaf over three references: the
+    root's code is the leaf's, (first << leaf_bits) | count."""
+    s, o, d, mt = scene
+    lo, hi = lbvh.triangle_aabbs(*s.mesh.corners())
+    i32 = dict(dtype=torch.int32, device=cuda)
+    bvh = lbvh.BVH(node_lo=lo[:3].amin(0, keepdim=True),
+                   node_hi=hi[:3].amax(0, keepdim=True),
+                   left=torch.zeros(0, **i32), right=torch.zeros(0, **i32),
+                   parent=torch.full((1,), -1, **i32),
+                   prim_ids=torch.tensor([2, 0, 1], **i32),
+                   leaf_first=torch.zeros(1, **i32),
+                   leaf_count=torch.full((1,), 3, **i32), max_leaf_size=4)
+    toward = (lo[0] + hi[0]) * 0.5 - o
+    for mode in ("closest", "any"):
+        refs = _same(bvh, "triangle", s.mesh, o, toward.contiguous(), mt,
+                     mode)
+        assert int((refs >= 0).sum()) > 100
+
+
+@pytest.mark.parametrize("change", ["refit", "vertices_moved", "replaced"])
+def test_pack_follows_the_tree(cuda, scene, change):
+    """The packed records are kept with the BVH: a second query reuses
+    them, and a refit in place, moved vertices or a replaced table give a
+    new pack, so the kernel still equals the plain version on the tree as
+    it now is."""
+    s, o, d, mt = scene
+    mesh = dataclasses.replace(s.mesh, vertices=s.mesh.vertices.clone())
+    bvh = dataclasses.replace(s.bvh, node_lo=s.bvh.node_lo.clone(),
+                              node_hi=s.bvh.node_hi.clone())
+    _same(bvh, "triangle", mesh, o, d, mt, "closest")
+    pack = tt.kernel_pack(bvh, "triangle", tt.prim_tables("triangle", mesh))
+    _same(bvh, "triangle", mesh, o, d, mt, "closest")
+    assert tt.kernel_pack(bvh, "triangle",
+                          tt.prim_tables("triangle", mesh))[0] is pack[0]
+    with torch.no_grad():
+        if change == "refit":
+            bvh.node_lo.sub_(0.25)
+            bvh.node_hi.add_(0.25)
+        elif change == "vertices_moved":
+            mesh.vertices.add_(0.125)
+        else:
+            bvh = dataclasses.replace(bvh, node_hi=bvh.node_hi + 0.5)
+    _same(bvh, "triangle", mesh, o, d, mt, "closest")
+    _same(bvh, "triangle", mesh, o, d, mt, "any")

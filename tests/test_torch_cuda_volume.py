@@ -271,3 +271,60 @@ def test_backward_refuses_oversized_tables(cuda):
         dataclasses.replace(vols, transfer=tr), torch.tensor(BG, device=cuda))
     with pytest.raises(RuntimeError, match="vsnray_volume_march_bwd"):
         color.sum().backward()
+
+
+def test_backward_table_at_the_optin_limit(cuda):
+    """Eight 908-entry tables: 29,056 f64 entries, exactly the 232,448
+    bytes a block may opt in to on the H100 (the transfer alone, no box
+    sums): the launch runs, and its gradient is the plain version's."""
+    scene, cam = volume_demo.multi_volume_scene(16, 8, device=cuda)
+    vols = _long_tables(scene.volumes, 908)
+    x, y = _pixel_grid(32, 32, cuda)
+    ray = cam.primary_rays(x, y, 32, 32)
+    o, d = ray.ori.contiguous(), ray.dir.contiguous()
+    w = torch.tensor(np.random.default_rng(7).uniform(
+        -1.0, 1.0, (o.shape[0], 4)).astype(np.float32), device=cuda)
+    bg = torch.tensor(BG, device=cuda)
+    grads = []
+    trav.reset_launch_counts()
+    for march in (tvol.volume_march, tvol.march_plain):
+        tr = vols.transfer.clone().requires_grad_()
+        color, _, _ = march(o, d, dataclasses.replace(vols, transfer=tr), bg)
+        (color * w).sum().backward()
+        grads.append(tr.grad)
+    torch.cuda.synchronize()
+    assert trav.LAUNCHES["volume_march_bwd"] == 1
+    assert float(grads[1].abs().max()) > 0
+    assert _rel(grads[0], grads[1]) <= 1e-4
+
+
+@pytest.mark.parametrize("make", [
+    lambda dev: volume_demo.volume_scene(32, device=dev),
+    lambda dev: volume_demo.multi_volume_scene(32, 3, device=dev)],
+    ids=["single", "multi"])
+def test_backward_transfer_adds_counted(cuda, make):
+    """The counting argument: the shared-memory adds the transfer gradient
+    issued, at least one and at most the 8 a step of a design without the
+    per-thread and per-warp sums; the gradients equal an uncounted
+    launch's within the atomics' reordering."""
+    scene, cam = make(cuda)
+    x, y = _pixel_grid(64, 64, cuda)
+    ray = cam.primary_rays(x, y, 64, 64)
+    o, d = ray.ori.contiguous(), ray.dir.contiguous()
+    bg = torch.tensor(BG, device=cuda)
+    vols = scene.volumes
+    steps = torch.zeros(o.shape[0], dtype=torch.int32, device=cuda)
+    color, _, _, dst = tvol._launch(o, d, vols, bg, 1.0, save_dst=True)
+    tvol._launch(o, d, vols, bg, 1.0, steps=steps)
+    gcolor = torch.tensor(np.random.default_rng(8).uniform(
+        -1.0, 1.0, (o.shape[0], 4)).astype(np.float32), device=cuda)
+    counts = torch.zeros(1, dtype=torch.int64, device=cuda)
+    got = tvol.march_backward(o, d, vols, bg, dst, gcolor,
+                              wanted=("texels", "transfer"), counts=counts)
+    ref = tvol.march_backward(o, d, vols, bg, dst, gcolor,
+                              wanted=("texels", "transfer"))
+    torch.cuda.synchronize()
+    adds, n_steps = int(counts), int(steps.sum())
+    assert 0 < adds <= 8 * n_steps
+    for k in ("texels", "transfer"):
+        assert _rel(got[k], ref[k]) <= 1e-6

@@ -64,8 +64,8 @@ OUT = {}
 _EPILOGUE = """
 np.savez(f"{sys.argv[2]}_{RANK}.npz",
          **{k: np.asarray(v) for k, v in OUT.items()})
-if torch.distributed.is_initialized():
-    torch.distributed.destroy_process_group()
+from visionaray_torch.parallel.multihost import shutdown
+shutdown()
 """
 
 

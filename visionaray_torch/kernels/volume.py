@@ -258,7 +258,7 @@ _GRADS = ("o", "d", "lo", "hi", "texels", "transfer")
 
 
 def march_backward(o, d, volumes: Volumes, bg, dst, gcolor,
-                   step_scale: float = 1.0, wanted=_GRADS):
+                   step_scale: float = 1.0, wanted=_GRADS, counts=None):
     """The gradients of one march's colour, a dict over the names in
     ``wanted`` (of ``o``, ``d`` (N, 3), ``lo``, ``hi`` (V, 3), ``texels``,
     ``transfer``), from its saved composite ``dst`` (N, 4) and ``gcolor``
@@ -267,9 +267,15 @@ def march_backward(o, d, volumes: Volumes, bg, dst, gcolor,
     the kernel none of its atomics.  The kernel sums the transfer and box
     gradients in a block's shared memory: it refuses tables of more
     entries (V * T * 4 + V * 6) than that holds in f64 (29,056 on the
-    H100)."""
+    H100).  ``counts``: an optional (1,) int64 tensor on the rays' device
+    that the kernel adds its shared-memory transfer adds to."""
     if o.device.type != "cuda":
         raise ValueError(f"march_backward: no kernel for {o.device}")
+    if counts is not None and (tuple(counts.shape) != (1,)
+                               or counts.dtype != torch.int64
+                               or counts.device != o.device):
+        raise ValueError("march_backward: counts must be int64 (1,) on the "
+                         "rays' device")
     n = o.shape[0]
     V, D, H, W = volumes.texels.shape
 
@@ -295,6 +301,7 @@ def march_backward(o, d, volumes: Volumes, bg, dst, gcolor,
             err = trav._library().vsnray_volume_march_bwd(
                 *[x.data_ptr() for x in args],
                 *[None if x is None else x.data_ptr() for x in outs],
+                None if counts is None else counts.data_ptr(),
                 n, V, D, H, W, volumes.transfer.shape[1], float(step_scale),
                 stream)
         if err != 0:

@@ -7,8 +7,7 @@
 // That tier has no pl.pallas_call: XLA compiles its vmapped while_loop
 // into one device loop.  Eager PyTorch would drive that loop from the
 // host, one iteration per node visit, so on the card the walk is this
-// kernel (the reference's own CUDA design, one thread per pixel with a
-// stack in local memory).
+// kernel.
 //
 // What it computes, per lane, exactly as the JAX walk and its plain
 // version ops/traversal.py::traverse_bvh_plain do: from node 0, one node
@@ -28,15 +27,39 @@
 //
 // Bound: the least time for a launch's work is set by its box tests'
 // operations (~20 a box; for the any-hit and multi-hit forms by the bytes
-// of the tables), but a walk is a chain of dependent gathers of 12-byte
-// node boxes and 4-byte child links, each its own 32-byte sector, and
-// their latency is what this design expects to hold it (PERF.md: 6.7% of
-// the operations bound on 1080p primary rays; incoherent rays cost 2-3.5x
-// more per box test).  This first design does nothing about it beyond one
-// thread per ray, the stack in local memory (L1-resident), read-only loads
-// through __ldg, and lanes with max_t <= 0 retiring before their first
-// load: it reads JAX's tables as they are (SoA node_lo, node_hi, left,
-// right, prim_ids; the mesh's v1, e1, e2 or the spheres' center, radius).
+// of the tables), but a walk is a chain of dependent gathers, and each
+// step issues far more instructions than the 20 operations counted: the
+// first design, which read JAX's SoA tables scalar by scalar, ran at 5-7%
+// of the bound on the 1080p frames, and its time followed the
+// instructions a step issues more than the sectors it reads.  This design
+// (Aila & Laine, "Understanding the Efficiency of Ray Traversal on GPUs",
+// HPG 2009, fitted to the walk's fixed visit order) cuts both:
+// - packed nodes (ops/traversal.py::pack_nodes, built once per BVH on the
+//   card): internal node i is one 64-byte record of 4 float4s, both
+//   children's boxes and both children's codes, read with vector __ldg,
+//   so a step is one dependent hop of two sectors (the first design made
+//   two hops, left/right then 12 scalar box loads over 4-6 sectors).  A
+//   child's code is its node index if it is internal and ~leaf if it is a
+//   leaf, where leaf points straight at the leaf's first primitive record
+//   (1:1 leaves: the leaf slot, a reference index) or packs
+//   (first << leaf_bits) | count (generalized leaves), so a leaf costs no
+//   hop through leaf_first / leaf_count;
+// - packed primitives (pack_prims): the records in reference order, a
+//   triangle 3 float4s (v1, e1, e2), a sphere one (centre, radius), so a
+//   leaf test reads one contiguous record, no prim_ids hop;
+// - the slab test's NaN-propagating min / max as one instruction each
+//   (nan_minmax.cuh: PTX min.NaN / max.NaN) where the first design spent
+//   a NaN test, a min and a select on each of its 24 a step: this halved
+//   the launch (PERF.md);
+// - one node or one leaf a loop iteration, as the first design.  Aila and
+//   Laine's while-while loop (descend until every lane of the warp holds
+//   a leaf, then test leaves) measured slower here: a 1:1 leaf is one
+//   primitive, so lanes waited on the warp's longest descent for a short
+//   leaf phase; so did a persistent grid whose lanes fetch a new ray as
+//   they finish.  Speculative traversal is not used: it would change the
+//   visit order and the counts the bound is taken from;
+// - the stack in local memory (L1-resident), lanes with max_t <= 0
+//   retiring before their first load.
 //
 // Forms (template parameters): the primitive (triangle: Moeller-Trumbore;
 // sphere: the stable quadratic, the smaller root even if negative, then
@@ -60,37 +83,29 @@ struct LbvhArgs {
   const float* ori;
   const float* dir;
   const float* max_t;
-  const float* node_lo;
-  const float* node_hi;
-  const int* left;
-  const int* right;
-  const int* prim_ids;
-  const int* leaf_first;
-  const int* leaf_count;
-  const float* p0;   // v1 or center
-  const float* p1;   // e1 or radius
-  const float* p2;   // e2
+  const float4* nodes;   // (L - 1, 4): see pack_nodes
+  const float4* prims;   // triangles (R, 3): v1, e1, e2; spheres (R,)
   float* out_t;
   int* out_ref;
   int* counters;
-  int n, num_nodes, num_refs, max_leaf_size, k;
+  int n, num_refs, leaf_bits, root, k;
 };
 
 struct Lane {
   float ox, oy, oz, dx, dy, dz, ix, iy, iz;
 };
 
-// JAX intersect_aabb of node n's box: tnear, tfar; hit = tfar >= tnear.
-__device__ __forceinline__ bool slab(const LbvhArgs& a, int n, const Lane& r,
-                                     float& tnear, float& tfar) {
-  const float* lo = a.node_lo + 3 * n;
-  const float* hi = a.node_hi + 3 * n;
-  const float t1x = (__ldg(lo + 0) - r.ox) * r.ix;
-  const float t1y = (__ldg(lo + 1) - r.oy) * r.iy;
-  const float t1z = (__ldg(lo + 2) - r.oz) * r.iz;
-  const float t2x = (__ldg(hi + 0) - r.ox) * r.ix;
-  const float t2y = (__ldg(hi + 1) - r.oy) * r.iy;
-  const float t2z = (__ldg(hi + 2) - r.oz) * r.iz;
+// JAX intersect_aabb of one box: tnear, tfar; hit = tfar >= tnear.
+__device__ __forceinline__ bool slab(float lox, float hix, float loy,
+                                     float hiy, float loz, float hiz,
+                                     const Lane& r, float& tnear,
+                                     float& tfar) {
+  const float t1x = (lox - r.ox) * r.ix;
+  const float t1y = (loy - r.oy) * r.iy;
+  const float t1z = (loz - r.oz) * r.iz;
+  const float t2x = (hix - r.ox) * r.ix;
+  const float t2y = (hiy - r.oy) * r.iy;
+  const float t2z = (hiz - r.oz) * r.iz;
   tnear = nan_max(nan_max(nan_min(t1x, t2x), nan_min(t1y, t2y)),
                   nan_min(t1z, t2z));
   tfar = nan_min(nan_min(nan_max(t1x, t2x), nan_max(t1y, t2y)),
@@ -99,41 +114,38 @@ __device__ __forceinline__ bool slab(const LbvhArgs& a, int n, const Lane& r,
 }
 
 // ops/intersect.py intersect_triangle, in its operation order.
-__device__ __forceinline__ bool triangle(const LbvhArgs& a, int pid,
+__device__ __forceinline__ bool triangle(const LbvhArgs& a, int ref,
                                          const Lane& r, float& t) {
-  const float* v1 = a.p0 + 3 * pid;
-  const float* e1 = a.p1 + 3 * pid;
-  const float* e2 = a.p2 + 3 * pid;
-  const float v1x = __ldg(v1), v1y = __ldg(v1 + 1), v1z = __ldg(v1 + 2);
-  const float e1x = __ldg(e1), e1y = __ldg(e1 + 1), e1z = __ldg(e1 + 2);
-  const float e2x = __ldg(e2), e2y = __ldg(e2 + 1), e2z = __ldg(e2 + 2);
-  const float s1x = r.dy * e2z - r.dz * e2y;
-  const float s1y = r.dz * e2x - r.dx * e2z;
-  const float s1z = r.dx * e2y - r.dy * e2x;
-  const float div = s1x * e1x + s1y * e1y + s1z * e1z;
+  const float4 v1 = __ldg(a.prims + 3 * ref);
+  const float4 e1 = __ldg(a.prims + 3 * ref + 1);
+  const float4 e2 = __ldg(a.prims + 3 * ref + 2);
+  const float s1x = r.dy * e2.z - r.dz * e2.y;
+  const float s1y = r.dz * e2.x - r.dx * e2.z;
+  const float s1z = r.dx * e2.y - r.dy * e2.x;
+  const float div = s1x * e1.x + s1y * e1.y + s1z * e1.z;
   bool ok = div != 0.0f;
   const float inv_div = ok ? 1.0f / div : 0.0f;
-  const float ddx = r.ox - v1x;
-  const float ddy = r.oy - v1y;
-  const float ddz = r.oz - v1z;
+  const float ddx = r.ox - v1.x;
+  const float ddy = r.oy - v1.y;
+  const float ddz = r.oz - v1.z;
   const float b1 = (ddx * s1x + ddy * s1y + ddz * s1z) * inv_div;
   ok = ok && (b1 >= 0.0f) && (b1 <= 1.0f);
-  const float s2x = ddy * e1z - ddz * e1y;
-  const float s2y = ddz * e1x - ddx * e1z;
-  const float s2z = ddx * e1y - ddy * e1x;
+  const float s2x = ddy * e1.z - ddz * e1.y;
+  const float s2y = ddz * e1.x - ddx * e1.z;
+  const float s2z = ddx * e1.y - ddy * e1.x;
   const float b2 = (r.dx * s2x + r.dy * s2y + r.dz * s2z) * inv_div;
   ok = ok && (b2 >= 0.0f) && (b1 + b2 <= 1.0f);
-  t = (e2x * s2x + e2y * s2y + e2z * s2z) * inv_div;
+  t = (e2.x * s2x + e2.y * s2y + e2.z * s2z) * inv_div;
   return ok;
 }
 
 // ops/intersect.py intersect_sphere, in its operation order.
-__device__ __forceinline__ bool sphere(const LbvhArgs& a, int pid,
+__device__ __forceinline__ bool sphere(const LbvhArgs& a, int ref,
                                        const Lane& r, float& t) {
-  const float* c = a.p0 + 3 * pid;
-  const float rad = __ldg(a.p1 + pid);
-  const float ox = r.ox - __ldg(c), oy = r.oy - __ldg(c + 1);
-  const float oz = r.oz - __ldg(c + 2);
+  const float4 c = __ldg(a.prims + ref);
+  const float rad = c.w;
+  const float ox = r.ox - c.x, oy = r.oy - c.y;
+  const float oz = r.oz - c.z;
   const float A = r.dx * r.dx + r.dy * r.dy + r.dz * r.dz;
   const float B = 2.0f * (r.dx * ox + r.dy * oy + r.dz * oz);
   const float C = (ox * ox + oy * oy + oz * oz) - rad * rad;
@@ -148,9 +160,9 @@ __device__ __forceinline__ bool sphere(const LbvhArgs& a, int pid,
 }
 
 template <int kPrim>
-__device__ __forceinline__ bool prim_test(const LbvhArgs& a, int pid,
+__device__ __forceinline__ bool prim_test(const LbvhArgs& a, int ref,
                                           const Lane& r, float& t) {
-  return kPrim == kTriangle ? triangle(a, pid, r, t) : sphere(a, pid, r, t);
+  return kPrim == kTriangle ? triangle(a, ref, r, t) : sphere(a, ref, r, t);
 }
 
 template <int kPrim, int kMode, bool kGen, bool kCount>
@@ -181,23 +193,23 @@ __global__ void __launch_bounds__(kBlock) lbvh_kernel(LbvhArgs a) {
     r.ix = 1.0f / r.dx;
     r.iy = 1.0f / r.dy;
     r.iz = 1.0f / r.dz;
-    const int leaf_base = (a.num_nodes + 1) / 2 - 1;
+    const unsigned count_mask = (1u << a.leaf_bits) - 1u;
     int stack[kStackDepth];
     int sp = 0;
-    int node = leaf_base > 0 ? 0 : leaf_base;
-    float worst = mt;   // multi: the k-array's last entry
+    int node = a.root;   // >= 0 internal, else ~leaf
+    float worst = mt;    // multi: the k-array's last entry
     while (true) {
-      if (node >= leaf_base) {
-        const int slot = node - leaf_base;
-        int first = slot, cnt = 1;
+      if (node < 0) {
+        const unsigned code = ~static_cast<unsigned>(node);
+        int first = static_cast<int>(code), cnt = 1;
         if (kGen) {
-          first = __ldg(a.leaf_first + slot);
-          cnt = min(__ldg(a.leaf_count + slot), a.max_leaf_size);
+          first = static_cast<int>(code >> a.leaf_bits);
+          cnt = static_cast<int>(code & count_mask);
         }
         for (int j = 0; j < cnt; ++j) {
           const int ref = min(first + j, a.num_refs - 1);
           float t;
-          const bool hit = prim_test<kPrim>(a, __ldg(a.prim_ids + ref), r, t);
+          const bool hit = prim_test<kPrim>(a, ref, r, t);
           if (kCount) ++n_prim;
           if (kMode == kMulti) {
             if (hit && t >= 0.0f && t < worst) {
@@ -216,16 +228,18 @@ __global__ void __launch_bounds__(kBlock) lbvh_kernel(LbvhArgs a) {
             br = ref;
           }
         }
-        if (kMode == kAny && br >= 0) break;
-        if (sp == 0) break;
+        if ((kMode == kAny && br >= 0) || sp == 0) break;
         node = stack[--sp];
         continue;
       }
-      const int lc = __ldg(a.left + node);
-      const int rc = __ldg(a.right + node);
+      const float4* rec = a.nodes + 4 * node;
+      const float4 n0 = __ldg(rec);       // left lo.x hi.x lo.y hi.y
+      const float4 n1 = __ldg(rec + 1);   // right lo.x hi.x lo.y hi.y
+      const float4 n2 = __ldg(rec + 2);   // left lo.z hi.z, right's
+      const int4 n3 = __ldg(reinterpret_cast<const int4*>(rec + 3));
       float tn1, tf1, tn2, tf2;
-      const bool h1 = slab(a, lc, r, tn1, tf1);
-      const bool h2 = slab(a, rc, r, tn2, tf2);
+      const bool h1 = slab(n0.x, n0.y, n0.z, n0.w, n2.x, n2.y, r, tn1, tf1);
+      const bool h2 = slab(n1.x, n1.y, n1.z, n1.w, n2.z, n2.w, r, tn2, tf2);
       if (kCount) n_box += 2;
       const float bound = kMode == kMulti ? worst : bt;
       const bool b1 = h1 && tn1 < bound && tf1 >= 0.0f;
@@ -233,13 +247,13 @@ __global__ void __launch_bounds__(kBlock) lbvh_kernel(LbvhArgs a) {
       if (b1 && b2) {
         const bool near_left = tn1 < tn2;
         // the wrapper refuses trees deeper than the stack; JAX's clip
-        stack[min(sp, kStackDepth - 1)] = near_left ? rc : lc;
+        stack[min(sp, kStackDepth - 1)] = near_left ? n3.y : n3.x;
         sp = min(sp + 1, kStackDepth);
-        node = near_left ? lc : rc;
+        node = near_left ? n3.x : n3.y;
       } else if (b1) {
-        node = lc;
+        node = n3.x;
       } else if (b2) {
-        node = rc;
+        node = n3.y;
       } else {
         if (sp == 0) break;
         node = stack[--sp];
@@ -276,43 +290,36 @@ cudaError_t launch_gen(const LbvhArgs& a, bool gen, bool count,
 
 }  // namespace
 
-// prim: 0 triangle, 1 sphere; mode: 0 closest, 1 any, 2 multi (triangles
-// on 1:1 leaves only); generalized: leaves read leaf_first / leaf_count.
+// nodes: (L - 1) 64-byte records, 16-byte aligned (null for a single
+// leaf); prims: the primitive records in reference order; root: the root's
+// code (0, or ~leaf of the single leaf); leaf_bits: the count's bits in a
+// generalized leaf's code.  prim: 0 triangle, 1 sphere; mode: 0 closest,
+// 1 any, 2 multi (triangles on 1:1 leaves only).
 extern "C" int vsnray_traverse_lbvh(
-    const void* ori, const void* dir, const void* max_t, const void* node_lo,
-    const void* node_hi, const void* left, const void* right,
-    const void* prim_ids, const void* leaf_first, const void* leaf_count,
-    const void* p0, const void* p1, const void* p2, void* out_t,
-    void* out_ref, void* counters, int n, int num_nodes, int num_refs,
-    int max_leaf_size, int k, int prim, int mode, int generalized,
-    void* stream) {
+    const void* ori, const void* dir, const void* max_t, const void* nodes,
+    const void* prims, void* out_t, void* out_ref, void* counters, int n,
+    int num_refs, int leaf_bits, int root, int k, int prim, int mode,
+    int generalized, void* stream) {
   LbvhArgs a;
   a.ori = static_cast<const float*>(ori);
   a.dir = static_cast<const float*>(dir);
   a.max_t = static_cast<const float*>(max_t);
-  a.node_lo = static_cast<const float*>(node_lo);
-  a.node_hi = static_cast<const float*>(node_hi);
-  a.left = static_cast<const int*>(left);
-  a.right = static_cast<const int*>(right);
-  a.prim_ids = static_cast<const int*>(prim_ids);
-  a.leaf_first = static_cast<const int*>(leaf_first);
-  a.leaf_count = static_cast<const int*>(leaf_count);
-  a.p0 = static_cast<const float*>(p0);
-  a.p1 = static_cast<const float*>(p1);
-  a.p2 = static_cast<const float*>(p2);
+  a.nodes = static_cast<const float4*>(nodes);
+  a.prims = static_cast<const float4*>(prims);
   a.out_t = static_cast<float*>(out_t);
   a.out_ref = static_cast<int*>(out_ref);
   a.counters = static_cast<int*>(counters);
   a.n = n;
-  a.num_nodes = num_nodes;
   a.num_refs = num_refs;
-  a.max_leaf_size = max_leaf_size;
+  a.leaf_bits = leaf_bits;
+  a.root = root;
   a.k = k;
   const bool gen = generalized != 0;
   const bool count = a.counters != nullptr;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (n <= 0 || k < 1 || (gen && (!a.leaf_first || !a.leaf_count)) ||
-      (prim == kTriangle && !a.p2) ||
+  if (n <= 0 || k < 1 || num_refs < 1 || !a.prims ||
+      (root >= 0 && !a.nodes) || leaf_bits < 0 || leaf_bits > 30 ||
+      (!gen && leaf_bits != 0) ||
       (mode == kMulti && (prim != kTriangle || gen))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }

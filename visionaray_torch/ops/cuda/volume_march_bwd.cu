@@ -60,17 +60,31 @@
 // step of every ray lands on them: an entry sums millions of terms (the
 // gated entry 0 of alpha takes one from every empty step), and f32 sums
 // put the transfer gradient of 2,048 rays through volume_scene(256) 3.5e-5
-// (relative L2) off the plain version's, f64 sums 1.1e-6.  So a block
-// accumulates them in double in dynamic shared memory, V * T * 4 entries
-// (above 48 KiB the block opts in to more; a table larger than the card
-// allows a block, 29,056 entries on the H100, is refused), and adds them
-// to a double output once, at its end.  A null gtexels or gtransfer skips
-// that gradient's atomics (optimizing only the transfer function takes no
-// texel atomics).  The ray and box terms are a second instantiation
-// (kPos), launched only when one of their gradients is asked for: in
-// one form they took the texel and transfer gradients from 96 to 168
-// registers and 11.3 to 16.6 ms at 256^3 (NVIDIA H100 80GB HBM3, 700 W).  Atomic adds are not associative: the gradients are not
-// bit-reproducible from run to run.
+// (relative L2) off the plain version's, f64 sums 1.1e-6.  So the sums
+// stay f64, in three levels:
+// - a thread sums consecutive steps that land on the same two taps (the
+//   box and the clamped t0, t1) in f64 registers, across its rays too,
+//   and flushes them when the taps change and at its end.  Empty space
+//   samples 0, always taps (0, 0): a thread's whole stretch of empty steps
+//   is one flush, where the first design issued up to 8 shared f64
+//   atomics a step, every lane of a warp on the same address (on sm_90 a
+//   shared f64 atomicAdd is a compare-and-swap loop, PERF.md);
+// - at a flush, the lanes that flush together are grouped by their taps
+//   (__match_any_sync), each group's sums are added up by shuffles in
+//   log2(group size) rounds, and one leader lane adds them to the block's
+//   table;
+// - a block accumulates the table in double in dynamic shared memory,
+//   V * T * 4 entries (above 48 KiB the block opts in to more; a table
+//   larger than the card allows a block, 29,056 entries on the H100, is
+//   refused), and adds it to a double output once, at its end.
+// A null gtexels or gtransfer skips that gradient's atomics (optimizing
+// only the transfer function takes no texel atomics); a non-null counts
+// gets the number of shared transfer adds issued.  The ray and box terms
+// are a second instantiation (kPos), launched only when one of their
+// gradients is asked for: in one form they took the texel and transfer
+// gradients from 96 to 168 registers and 11.3 to 16.6 ms at 256^3
+// (NVIDIA H100 80GB HBM3, 700 W).  Atomic adds are not associative: the
+// gradients are not bit-reproducible from run to run.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -80,6 +94,7 @@
 namespace {
 
 constexpr int kBlock = 128;
+constexpr int kMinBlocks = 3;
 constexpr int kMaxBlocks = 2048;
 
 struct BwdArgs {
@@ -94,8 +109,72 @@ struct BwdArgs {
   float* gori;           // (n, 3) dL/do, written, or null
   float* gdir;           // (n, 3) dL/dd, written, or null
   double* gbox;          // (V, 6) dL/d(lo, hi), accumulated into, or null
+  unsigned long long* counts;   // [0] += shared transfer adds, or null
   int n;
 };
+
+// A thread's transfer sums since its last flush: the steps that sampled
+// taps t0, t1 of box vol (key), (1 - ft) dL/dc to entry e0 and ft dL/dc to
+// entry e1, each channel in f64.
+struct TrAcc {
+  int key;          // ((vol T + t0) << 1) | (t1 - t0); -1: nothing held
+  int e0, e1;       // 4 (vol T + t0), 4 (vol T + t1): table offsets
+  double s[8];      // e0's four channels, then e1's
+};
+
+// Sum x over the lanes of `peers` (this lane's group among the lanes of
+// `mask`) into the group's lowest lane: each round a lane adds the
+// partial sum of its next-higher live peer, and the peers at odd
+// positions drop out (Westphal's segmented reduction; every lane of
+// `mask` runs the same rounds).
+__device__ __forceinline__ void reduce_peers(unsigned mask, unsigned peers,
+                                             double (&x)[8]) {
+  const unsigned lane = threadIdx.x & 31u;
+  unsigned rel = __popc(peers & ((1u << lane) - 1u));
+  unsigned up = peers & ~((2u << lane) - 1u);
+  while (__any_sync(mask, up != 0u)) {
+    const int next = __ffs(up);
+    const int src = next != 0 ? next - 1 : static_cast<int>(lane);
+    for (int j = 0; j < 8; ++j) {
+      const double t = __shfl_sync(mask, x[j], src);
+      if (next != 0) x[j] = x[j] + t;
+    }
+    up &= ~__ballot_sync(mask, (rel & 1u) != 0u);
+    rel >>= 1;
+  }
+}
+
+// Add the sums of the lanes flushing together, grouped by taps, to the
+// block's table, one leader lane a group; then acc holds nothing.
+__device__ __forceinline__ void flush_transfer(double* s_tr, TrAcc& acc,
+                                               unsigned long long* counts) {
+  const unsigned mask = __activemask();
+  const unsigned peers = __match_any_sync(mask, acc.key);
+  reduce_peers(mask, peers, acc.s);
+  const unsigned lane = threadIdx.x & 31u;
+  if (acc.key >= 0 && lane == static_cast<unsigned>(__ffs(peers) - 1)) {
+    int adds = 0;
+    for (int ch = 0; ch < 4; ++ch) {
+      double s0 = acc.s[ch];
+      const double s1 = acc.s[4 + ch];
+      if (acc.e1 == acc.e0) {
+        s0 = s0 + s1;
+      } else if (s1 != 0.0) {
+        atomicAdd(s_tr + acc.e1 + ch, s1);
+        ++adds;
+      }
+      if (s0 != 0.0) {
+        atomicAdd(s_tr + acc.e0 + ch, s0);
+        ++adds;
+      }
+    }
+    if (counts != nullptr && adds > 0) {
+      atomicAdd(counts, static_cast<unsigned long long>(adds));
+    }
+  }
+  acc.key = -1;
+  for (int j = 0; j < 8; ++j) acc.s[j] = 0.0;
+}
 
 // One box's share of a ray's gradient, summed over its live steps.
 struct BoxAcc {
@@ -169,8 +248,13 @@ __device__ __forceinline__ void flush_box(const vol::Grid& g,
 
 // kPos: the ray and box gradients are wanted (any of gori, gdir, gbox);
 // the form without them keeps the texel and transfer form's registers.
+// At least kMinBlocks blocks an SM: the kPos form would take 185
+// registers and 2 blocks; capped at 168 with 92 B of spills it runs 3,
+// 21% faster at 256^3 (scripts/torch_kernel_ab_lbvh_volume.py, PERF.md);
+// the other form stays under the cap.
 template <bool kPos>
-__global__ void __launch_bounds__(kBlock) volume_bwd_kernel(BwdArgs a) {
+__global__ void __launch_bounds__(kBlock, kMinBlocks)
+    volume_bwd_kernel(BwdArgs a) {
   // V * T * 4 where gtransfer is wanted, then V * 6 where gbox is
   extern __shared__ double s_tr[];
   const bool want_tr = a.gtransfer != nullptr;
@@ -186,6 +270,10 @@ __global__ void __launch_bounds__(kBlock) volume_bwd_kernel(BwdArgs a) {
   const float fT = static_cast<float>(a.g.T);
   const float bg0 = __ldg(a.bg), bg1 = __ldg(a.bg + 1);
   const float bg2 = __ldg(a.bg + 2), bg3 = __ldg(a.bg + 3);
+  TrAcc tacc;
+  tacc.key = -1;
+  tacc.e0 = tacc.e1 = 0;
+  for (int j = 0; j < 8; ++j) tacc.s[j] = 0.0;
 
   for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < a.n;
        i += gridDim.x * blockDim.x) {
@@ -233,14 +321,24 @@ __global__ void __launch_bounds__(kBlock) volume_bwd_kernel(BwdArgs a) {
         // z = c.a dt D
         acc.gdt = acc.gdt + gz * s.c[3] * fD;
       }
-      double* tr = s_tr + 4 * a.g.T * s.vol;
+      if (want_tr) {
+        const int e = a.g.T * s.vol;
+        const int key = ((e + s.t0) << 1) | (s.t1 - s.t0);
+        if (key != tacc.key) {
+          if (tacc.key >= 0) flush_transfer(s_tr, tacc, a.counts);
+          tacc.key = key;
+          tacc.e0 = 4 * (e + s.t0);
+          tacc.e1 = 4 * (e + s.t1);
+        }
+      }
       float dft = 0.0f;
       for (int ch = 0; ch < 4; ++ch) {
         if (dc[ch] == 0.0f) continue;
         if (want_tr) {
-          atomicAdd(tr + 4 * s.t0 + ch,
-                    static_cast<double>((1.0f - s.ft) * dc[ch]));
-          atomicAdd(tr + 4 * s.t1 + ch, static_cast<double>(s.ft * dc[ch]));
+          tacc.s[ch] = tacc.s[ch] +
+                       static_cast<double>((1.0f - s.ft) * dc[ch]);
+          tacc.s[4 + ch] = tacc.s[4 + ch] +
+                           static_cast<double>(s.ft * dc[ch]);
         }
         dft = dft + dc[ch] * (s.c1[ch] - s.c0[ch]);
       }
@@ -288,6 +386,7 @@ __global__ void __launch_bounds__(kBlock) volume_bwd_kernel(BwdArgs a) {
     }
   }
 
+  if (want_tr) flush_transfer(s_tr, tacc, a.counts);
   __syncthreads();
   for (int j = threadIdx.x; j < n_tr; j += blockDim.x) {
     if (s_tr[j] != 0.0) atomicAdd(a.gtransfer + j, s_tr[j]);
@@ -305,13 +404,15 @@ __global__ void __launch_bounds__(kBlock) volume_bwd_kernel(BwdArgs a) {
 // and gbox (V, 6: lo, hi) are added to (pass zeros), gori and gdir (n, 3)
 // written for every ray (pass zeros: a ray with dL/dcolor = 0 is
 // skipped); each is null where that gradient is not wanted.  All f32 but
-// gtransfer and gbox, f64.  cudaErrorInvalidValue where the V * T * 4 and
-// V * 6 doubles exceed the shared memory a block may opt in to.
+// gtransfer and gbox, f64.  counts (1,) u64, added to, or null: the
+// shared-memory adds the transfer gradient issued.  cudaErrorInvalidValue
+// where the V * T * 4 and V * 6 doubles exceed the shared memory a block
+// may opt in to.
 extern "C" int vsnray_volume_march_bwd(
     const void* ori, const void* dir, const void* lo, const void* hi,
     const void* texels, const void* transfer, const void* bg,
     const void* dst, const void* gcolor, void* gtexels, void* gtransfer,
-    void* gori, void* gdir, void* gbox,
+    void* gori, void* gdir, void* gbox, void* counts,
     int n, int V, int D, int H, int W, int T, float step_scale,
     void* stream) {
   BwdArgs a;
@@ -335,6 +436,7 @@ extern "C" int vsnray_volume_march_bwd(
   a.gori = static_cast<float*>(gori);
   a.gdir = static_cast<float*>(gdir);
   a.gbox = static_cast<double*>(gbox);
+  a.counts = static_cast<unsigned long long*>(counts);
   a.n = n;
   if (n <= 0 || V < 1 || D < 1 || H < 1 || W < 1 || T < 1) {
     return static_cast<int>(cudaErrorInvalidValue);

@@ -37,6 +37,8 @@ at the winning primitive, as JAX does.
 
 from __future__ import annotations
 
+import weakref
+
 import torch
 
 import visionaray_torch.ops.traverse as trav
@@ -66,14 +68,147 @@ def leaf_variant_key(key: str, generalized: bool) -> str:
     return f"{key}/leaves_{'generalized' if generalized else '1to1'}"
 
 
+# id(object) -> (weak reference, cache): what this module keeps for a BVH
+# (its kernel pack) or a geometry (its primitive tables) while it lives
+_CACHES: dict = {}
+
+
+def _cache_of(obj) -> dict:
+    """The cache dict kept for ``obj``, dropped when ``obj`` dies."""
+    oid = id(obj)
+    entry = _CACHES.get(oid)
+    if entry is not None and entry[0]() is obj:
+        return entry[1]
+    cache = {}
+    _CACHES[oid] = (weakref.ref(obj, lambda _, oid=oid: _CACHES.pop(oid,
+                                                                    None)),
+                    cache)
+    return cache
+
+
+def _version(t):
+    """A tensor's in-place write count; None for no tensor and for an
+    inference tensor, which keeps none (render's inference_mode makes
+    them; one can be written in place only inside that mode, and the port
+    writes none of its tables there)."""
+    return None if t is None or t.is_inference() else t._version
+
+
+def _key(tensors):
+    return tuple((t, _version(t)) for t in tensors)
+
+
+def _held(key, tensors) -> bool:
+    """Whether ``key`` (from _key) still names ``tensors`` as they are: the
+    same objects, none written in place since."""
+    return len(key) == len(tensors) and all(
+        k is t and v == _version(t) for (k, v), t in zip(key, tensors))
+
+
 def prim_tables(prim: str, geom):
     """The kernel's primitive tables of a TriangleMesh (v1, e1, e2) or a
-    Spheres group (center, radius), detached and contiguous f32."""
-    if prim == "triangle":
-        arrs = geom.corners()
+    Spheres group (center, radius), detached and contiguous f32 (a
+    triangle group is anything with ``corners()``).  Kept with ``geom``
+    while its tensor fields are the same tensors, unwritten, so that every
+    query of a frame hands the kernel the same tables and ``kernel_pack``
+    reuses their pack."""
+    src = tuple(v for v in vars(geom).values() if isinstance(v, torch.Tensor))
+    cache = _cache_of(geom)
+    if cache.get("prim") == prim and _held(cache["key"], src):
+        return cache["tables"]
+    arrs = geom.corners() if prim == "triangle" else (geom.center,
+                                                       geom.radius)
+    tables = tuple(a.detach().to(torch.float32).contiguous() for a in arrs)
+    cache.update(prim=prim, key=_key(src), tables=tables)
+    return tables
+
+
+def leaf_bits(bvh: BVH) -> int:
+    """The bits a generalized leaf's code gives its count: enough for
+    ``max_leaf_size``; 0 on 1:1 leaves, whose code is the leaf slot."""
+    if bvh.leaf_first is None:
+        return 0
+    return max(int(bvh.max_leaf_size), 0).bit_length()
+
+
+def pack_nodes(bvh: BVH):
+    """The kernel's node records: (L - 1, 16) f32, internal node i as
+    four float4s, (lo.x, hi.x, lo.y, hi.y) of its left child, the same of
+    its right child, (lo.z, hi.z) of the left then of the right, and the
+    two children's codes (int32 bits) and two zero words.  A child's code
+    is its node index when it is internal, else ``~leaf``: on 1:1 leaves
+    ``leaf`` is the leaf slot (its reference), on generalized leaves
+    ``(leaf_first << leaf_bits) | min(leaf_count, max_leaf_size)``.
+    Returns (records, root code)."""
+    L = bvh.num_leaves
+    base = L - 1
+    dev = bvh.node_lo.device
+    bits = leaf_bits(bvh)
+    if bvh.leaf_first is not None:
+        first = bvh.leaf_first.to(torch.int64)
+        count = torch.clamp(bvh.leaf_count.to(torch.int64), 0,
+                            max(int(bvh.max_leaf_size), 0))
+        if L and int(first.max()) >= 1 << (31 - bits):
+            raise ValueError(f"pack_nodes: leaf_first up to "
+                             f"{int(first.max())} does not fit a leaf code "
+                             f"beside {bits} count bits")
+        leaf_code = ~((first << bits) | count)
     else:
-        arrs = (geom.center, geom.radius)
-    return tuple(a.detach().to(torch.float32).contiguous() for a in arrs)
+        leaf_code = ~torch.arange(L, dtype=torch.int64, device=dev)
+    root = 0 if base > 0 else int(leaf_code[0])
+    if base == 0:
+        return torch.zeros((0, 16), dtype=torch.float32, device=dev), root
+    lc = bvh.left.to(torch.int64)
+    rc = bvh.right.to(torch.int64)
+
+    def code(c):
+        return torch.where(c < base, c,
+                           leaf_code[torch.clamp_min(c - base, 0)])
+
+    lo, hi = bvh.node_lo, bvh.node_hi
+    boxes = torch.stack([lo[lc, 0], hi[lc, 0], lo[lc, 1], hi[lc, 1],
+                         lo[rc, 0], hi[rc, 0], lo[rc, 1], hi[rc, 1],
+                         lo[lc, 2], hi[lc, 2], lo[rc, 2], hi[rc, 2]], dim=1)
+    zero = torch.zeros_like(lc)
+    codes = torch.stack([code(lc), code(rc), zero, zero], dim=1)
+    codes = codes.to(torch.int32).view(torch.float32)
+    return torch.cat([boxes.to(torch.float32), codes], dim=1).contiguous(), \
+        root
+
+
+def pack_prims(bvh: BVH, prim: str, tables):
+    """The kernel's primitive records in reference order (record r is
+    primitive ``prim_ids[r]``): triangles (R, 3, 4) f32, rows v1, e1, e2
+    with a zero w; spheres (R, 4) f32, (centre, radius)."""
+    pid = bvh.prim_ids.to(torch.int64)
+    if prim == "triangle":
+        rows = torch.stack([x[pid] for x in tables], dim=1)
+        return torch.cat([rows, torch.zeros_like(rows[..., :1])],
+                         dim=2).contiguous()
+    center, radius = tables
+    return torch.cat([center[pid], radius[pid, None]], dim=1).contiguous()
+
+
+def kernel_pack(bvh: BVH, prim: str, tables):
+    """The packed nodes (with their root code) and primitives of ``bvh``
+    and ``tables`` for the kernel, built on their device at first use and
+    kept on the BVH: a later query reuses them while the BVH's tables (and
+    for the primitives, ``tables``) are the same tensors, unwritten (their
+    ``_version``).  A rebuilt or refitted tree (new tensors, or tensors
+    written in place) gets a new pack."""
+    cache = _cache_of(bvh)
+    node_src = (bvh.node_lo, bvh.node_hi, bvh.left, bvh.right,
+                bvh.leaf_first, bvh.leaf_count)
+    if not _held(cache.get("node_key", ()), node_src):
+        cache.clear()
+        cache["nodes"], cache["root"] = pack_nodes(bvh)
+        cache["node_key"] = _key(node_src)
+    prim_src = (bvh.prim_ids, *tables)
+    if cache.get("prim") != prim or not _held(cache.get("prim_key", ()),
+                                              prim_src):
+        cache["prims"] = pack_prims(bvh, prim, tables)
+        cache["prim"], cache["prim_key"] = prim, _key(prim_src)
+    return cache["nodes"], cache["root"], cache["prims"]
 
 
 def _check(o, d, max_t, bvh: BVH, prim: str, tables, mode: str, k: int):
@@ -165,25 +300,20 @@ def bvh_traverse(o, d, max_t, bvh: BVH, prim: str, tables, mode: str,
 def launch(lib, o, d, max_t, bvh: BVH, prim: str, tables, mode: str, k: int,
            counters, stream):
     """Allocate the outputs and call ``lib.vsnray_traverse_lbvh`` on the
-    inputs ``bvh_traverse`` has checked; raises on a launch error."""
+    inputs ``bvh_traverse`` has checked, with ``kernel_pack``'s records;
+    raises on a launch error."""
     n = o.shape[0]
     shape = (n, k) if mode == "multi" else (n,)
     out_t = torch.empty(shape, dtype=torch.float32, device=o.device)
     out_ref = torch.empty(shape, dtype=torch.int32, device=o.device)
     if n == 0:
         return out_t, out_ref
-
-    def ptr(x):
-        return None if x is None else x.data_ptr()
-
-    inner = bvh.num_leaves > 1
-    args = [ptr(o), ptr(d), ptr(max_t), ptr(bvh.node_lo), ptr(bvh.node_hi),
-            ptr(bvh.left) if inner else None,
-            ptr(bvh.right) if inner else None, ptr(bvh.prim_ids),
-            ptr(bvh.leaf_first), ptr(bvh.leaf_count), ptr(tables[0]),
-            ptr(tables[1]), ptr(tables[2]) if prim == "triangle" else None,
-            ptr(out_t), ptr(out_ref), ptr(counters), n, bvh.num_nodes,
-            bvh.num_prims, int(bvh.max_leaf_size), int(k), PRIMS.index(prim),
+    nodes, root, prims = kernel_pack(bvh, prim, tables)
+    args = [o.data_ptr(), d.data_ptr(), max_t.data_ptr(),
+            nodes.data_ptr() if nodes.numel() else None, prims.data_ptr(),
+            out_t.data_ptr(), out_ref.data_ptr(),
+            None if counters is None else counters.data_ptr(), n,
+            bvh.num_prims, leaf_bits(bvh), root, int(k), PRIMS.index(prim),
             MODES.index(mode), int(bvh.leaf_first is not None)]
     err = lib.vsnray_traverse_lbvh(*args, stream)
     if err != 0:

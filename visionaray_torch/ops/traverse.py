@@ -204,16 +204,16 @@ def bind_library(lib_path) -> ctypes.CDLL:
     for entry, argtypes in (
             ("vsnray_traverse_binned", [p] * 10 + [i] * 9 + [p]),
             ("vsnray_traverse_coherent", [p] * 8 + [i] * 4 + [p]),
-            # rays, max_t, node tables, prim_ids, leaf tables, 3 prim
-            # tables, 2 outputs, counters; 8 ints; the stream
-            ("vsnray_traverse_lbvh", [p] * 16 + [i] * 8 + [p]),
+            # rays, max_t, packed nodes and primitives, 2 outputs,
+            # counters; 8 ints; the stream
+            ("vsnray_traverse_lbvh", [p] * 8 + [i] * 8 + [p]),
             # rays, boxes, texels, transfer, bg, 3 outputs, dst, steps; n,
             # V, D, H, W, T; step_scale; the stream
             ("vsnray_volume_march", [p] * 12 + [i] * 6 + [f, p]),
             # rays, boxes, texels, transfer, bg, dst, dL/dcolor, 5
-            # gradients (texels, transfer, ori, dir, boxes); n, V, D, H,
-            # W, T; step_scale; the stream
-            ("vsnray_volume_march_bwd", [p] * 14 + [i] * 6 + [f, p])):
+            # gradients (texels, transfer, ori, dir, boxes), the counts;
+            # n, V, D, H, W, T; step_scale; the stream
+            ("vsnray_volume_march_bwd", [p] * 15 + [i] * 6 + [f, p])):
         fn = getattr(lib, entry, None)
         if fn is None:
             continue

@@ -73,6 +73,21 @@ def initialize(coordinator_address: Optional[str] = None,
     return dist.get_world_size() > 1
 
 
+def shutdown() -> None:
+    """End this rank's part in the default process group, if there is one:
+    wait at a barrier for every rank to finish, then destroy the group, so
+    that no rank leaves the interpreter while the backend's threads still
+    run (a gloo rank that exits with its group alive can die in
+    std::terminate after its work is done).  Call it in a ``finally``:
+    while an exception propagates the barrier is skipped, as the other
+    ranks may never reach it, and the group is only destroyed."""
+    if not dist.is_initialized():
+        return
+    if sys.exc_info()[0] is None:
+        dist.barrier()
+    dist.destroy_process_group()
+
+
 def global_mesh() -> Mesh:
     """1-D mesh over every rank of the default group."""
     return world_mesh()
