@@ -147,13 +147,22 @@ Phases, each of which fails the run (non-zero exit) when it fails:
     texels) and (b) multi_volume_scene(128, 3), each rendered with
     render(..., algo="volume") at 1080p (volume_frame_s,
     multi_volume_frame_s): exactly one vsnray_volume_march launch
-    (volume_march.cu, one thread per ray).  The launch on the frame's
+    (volume_march.cu, one thread per ray), and in the first frame also
+    one vsnray_volume_bricks launch (the march's brick table, built once
+    per texels and transfer; held against its plain version,
+    kernels/volume.py::brick_table, table and words equal).  The launch
+    on the frame's
     primary rays equals the frame; against the plain version on
     COMPARE_LANES lanes of its first, middle and last slice, hit and depth
     equal and colour within 1e-5 (bit-equal or not is printed); its time
     from CUDA events, its steps from the counting form (sizing its
-    operations bound: FLOP_STEP a step), registers, stack and spills from
-    ptxas; a permuted volume array gives the same image.
+    operations bound: FLOP_STEP a step; at full size equal to every
+    earlier design's, VOLUME_STEPS), the steps it skipped in empty
+    bricks and its warp-iterations whose every lane skipped, its transfer
+    form (VARIANT_LAUNCHES), the time to build its tables
+    (volume_pack_ms: padded texels and brick table), registers, stack and
+    spills from ptxas, its step loop's SASS instructions (cuobjdump); a
+    permuted volume array gives the same image.
 20. Volume gradients, on phase 19's two scenes: (a) the backward kernel
     (volume_march_bwd.cu, one launch) against the plain version's
     autograd on the same COMPARE_LANES-lane subsets as phase 19 (the
@@ -168,7 +177,9 @@ Phases, each of which fails the run (non-zero exit) when it fails:
     forward and backward of the MSE between render(algo="volume") and a
     target rendered with the transfer scaled by 0.8, over texels and
     transfer, one warm step then TIMED_STEPS timed: launches a step
-    (counts reset just before the counted step), peak memory, gradients
+    (counts reset just before the counted step: the march, its
+    backward and the brick table of the step's new texels), peak memory,
+    gradients
     finite and non-zero; the backward kernel's time by CUDA events (for
     texels and transfer, for the transfer alone, and for every gradient,
     rays and boxes included), its bound and ptxas' registers, stack and
@@ -186,7 +197,8 @@ Phases, each of which fails the run (non-zero exit) when it fails:
     and the image equals the in-process render of load_obj_scene;
     (d) builtin:sponza_x16 --bvh cluster (4,154,496 triangles, radix
     tree, the run-time-K form), simple, and the same scene --bvh sah;
-    (e) builtin:volume --algorithm volume; (f) (b) with --elastic and a
+    (e) builtin:volume --algorithm volume (the march and its brick
+    table); (f) (b) with --elastic and a
     checkpoint: every batch done, none failed, the image equal to the
     checkpoint's, and an interrupted in-process run of the same frame
     resumed from its checkpoint bit-identical to it; (g) --dump-bvh of
@@ -247,6 +259,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -369,6 +382,10 @@ VOLUME_ENTRY = "vsnray_volume_march"
 VOLUME_RES = 256                 # upstream's examples/volume: 256^3
 MULTI_RES, MULTI_N = 128, 3
 FLOP_STEP = 100                  # f32 operations of one march step
+# the steps of the 1080p primary rays at full size, every design's
+# (the first design's counting form): the skip must visit the same steps
+VOLUME_STEPS = {"volume": 172_730_813, "multi volume": 60_492_534}
+STEPS_NOTE = {None: "not this size", True: "equal", False: "DIFFERENT"}
 VOLUME_ATOL = 1e-5               # colour, kernel vs plain
 RENDER_BG = (0.1, 0.4, 1.0, 1.0)   # render's default bg_color
 # phase 20: the volume march's backward kernel
@@ -609,14 +626,88 @@ def form_name(mangled):
         prim, mode, gen, count = (int(g) for g in m.groups())
         return (f"lbvh {tt.PRIMS[prim]} {tt.MODES[mode]} "
                 f"generalized={gen} count={count}")
-    m = re.search(r"volume_kernelILb(\d)E", mangled)
+    m = re.search(r"volume_kernelILb(\d)E(?:Lb(\d)E)?", mangled)
     if m:
-        return f"volume count={m.group(1)}"
+        # shared=1: the transfer tables in shared memory; without it the
+        # first design, which had no transfer form
+        return f"volume count={m.group(1)}" + (
+            f" shared={m.group(2)}" if m.group(2) else "")
+    if "bricks_kernel" in mangled:
+        return "volume_bricks"
     m = re.search(r"volume_bwd_kernelILb(\d)E", mangled)
     if m:
         # pos=1: with the ray and box gradients
         return f"volume_bwd pos={m.group(1)}"
     return mangled
+
+
+def kernel_sass(lib_path):
+    """{form name: [(address, instruction)]} of every kernel in a built
+    library, from ``cuobjdump -sass``."""
+    cuobjdump = Path(trav._nvcc()).with_name("cuobjdump")
+    text = subprocess.run([str(cuobjdump), "-sass", str(lib_path)],
+                          capture_output=True, text=True, check=True,
+                          timeout=300).stdout
+    out = {}
+    for body in re.split(r"\n\s*Function : ", text)[1:]:
+        head, _, rest = body.partition("\n")
+        out[form_name(head.strip())] = [
+            (int(a, 16), ins.strip()) for a, ins in re.findall(
+                r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", rest)]
+    return out
+
+
+_BRA = re.compile(r"\bBRA(?:\.[A-Z.]+)?\s+`?\(?(0x[0-9a-f]+)")
+
+
+def _opcode(ins):
+    parts = ins.split()
+    return parts[1] if parts[0].startswith("@") else parts[0]
+
+
+def step_loop(instrs):
+    """The march's step loop in one kernel's SASS: the smallest loop
+    (from a branch target to the last branch back to it) that rounds 3
+    values down (``FLOOR``: the base cell) and holds a global load.
+    Returns {"loop": its instructions, "loads": its global loads,
+    "empty_path": the instructions a skipped step runs, estimated from
+    the layout (the loop's head to the first predicated forward branch
+    after its first global load, the brick bit's, then from that branch's
+    target to the next branch back to the head), "head": its address},
+    or None."""
+    pos = {a: i for i, (a, _) in enumerate(instrs)}
+    back = {}
+    for i, (a, ins) in enumerate(instrs):
+        m = _BRA.search(ins)
+        if m and int(m.group(1), 16) <= a and int(m.group(1), 16) in pos:
+            t = pos[int(m.group(1), 16)]
+            back[t] = max(back.get(t, i), i)
+    best = None
+    for head, end in back.items():
+        body = instrs[head:end + 1]
+        loads = sum(_opcode(ins).startswith("LDG") for _, ins in body)
+        floors = sum("FLOOR" in _opcode(ins) for _, ins in body)
+        if loads and floors >= 3 and (best is None
+                                      or end - head < best[1] - best[0]):
+            best = (head, end, loads)
+    if best is None:
+        return None
+    head, end, loads = best
+    first = next(i for i in range(head, end + 1)
+                 if _opcode(instrs[i][1]).startswith("LDG"))
+    empty = None
+    for i in range(first, end + 1):
+        m = _BRA.search(instrs[i][1])
+        if m and instrs[i][1].startswith("@"):
+            t = pos.get(int(m.group(1), 16))
+            if t is not None and i < t <= end:
+                tail = next((j for j in range(t, end + 1)
+                             if (b := _BRA.search(instrs[j][1]))
+                             and pos.get(int(b.group(1), 16)) == head), end)
+                empty = (i - head + 1) + (tail - t + 1)
+            break
+    return {"loop": end - head + 1, "loads": loads, "empty_path": empty,
+            "head": instrs[head][0]}
 
 
 def ptxas_lines(log, main_path=False):
@@ -1951,12 +2042,15 @@ def volume_bytes(n, vols):
             + vols.texels.numel() * 4 + vols.transfer.numel() * 4)
 
 
-def volume_phase(label, scene, cam, dev, entries, ptx):
+def volume_phase(label, scene, cam, dev, entries, ptx, sass):
     """Phase 19, one scene: render(algo="volume") at 1080p, timed as phase
-    3, exactly one vsnray_volume_march launch; the launch held against the
-    plain version on COMPARE_LANES lanes of its first, middle and last
-    slice; its time (CUDA events), steps (the counting form) and bound; a
-    permuted volume array and a gradient to the rays on the card."""
+    3, exactly one vsnray_volume_march launch (its transfer form read from
+    VARIANT_LAUNCHES); the launch held against the plain version on
+    COMPARE_LANES lanes of its first, middle and last slice; its time
+    (CUDA events), steps, empty steps and warp-iterations (the counting
+    form), bound, the time to build its tables (volume_pack_ms) and its
+    step loop in SASS (``sass``: step_loop of its form); a permuted volume
+    array."""
     out = {}
     vols = scene.volumes
 
@@ -1964,11 +2058,15 @@ def volume_phase(label, scene, cam, dev, entries, ptx):
         rt = render(scene, cam, WIDTH, HEIGHT, algo="volume")
         return rt.color.reshape(-1, 4), rt.depth.reshape(-1)
 
+    # the first frame builds the brick table (one vsnray_volume_bricks
+    # launch), the next reuse it
     torch.cuda.synchronize()
+    trav.reset_launch_counts()
     t0 = time.perf_counter()
     frame(1)
     torch.cuda.synchronize()
     warm_s = time.perf_counter() - t0
+    cold = {k: v for k, v in trav.LAUNCHES.items() if v}
     trav.reset_launch_counts()
     t0 = time.perf_counter()
     color, depth = frame(2)
@@ -1976,6 +2074,8 @@ def volume_phase(label, scene, cam, dev, entries, ptx):
     times = [time.perf_counter() - t0]
     launches = dict(trav.LAUNCHES)
     ents = dict(trav.ENTRY_LAUNCHES)
+    forms = {k: v for k, v in trav.VARIANT_LAUNCHES.items()
+             if k.startswith("volume_march/")}
     for i in range(TIMED_FRAMES - 1):
         t0 = time.perf_counter()
         frame(3 + i)
@@ -1986,11 +2086,13 @@ def volume_phase(label, scene, cam, dev, entries, ptx):
     hit = float((depth > 0).float().mean())
     ok = (finite and hit > 0.2 and float(color[:, :3].std()) > 0
           and launches["volume_march"] == 1 and sum(launches.values()) == 1
-          and ents[VOLUME_ENTRY] == 1)
+          and ents[VOLUME_ENTRY] == 1 and sum(forms.values()) == 1
+          and cold == {"volume_march": 1, "volume_bricks": 1})
     log(f"{label} 1920x1080 V={vols.num_volumes} "
         f"texels={tuple(vols.texels.shape)}: frame_s={frame_s:.4f} (frames "
         f"{', '.join(f'{t:.4f}' for t in times)}) warm_s={warm_s:.3f} "
         f"launches={ {k: v for k, v in launches.items() if v} } "
+        f"(first frame {cold}) forms={forms} "
         f"hit_fraction={hit:.4f} image_mean="
         f"{float(color[:, :3].mean()):.6f} finite={finite} "
         f"{'OK' if ok else 'FAIL'}")
@@ -2016,10 +2118,20 @@ def volume_phase(label, scene, cam, dev, entries, ptx):
     plain_ms = cuda_ms(lambda: march_plain(os_, ds_, vols, bg), 1)
     ms = cuda_ms(lambda: volume_march(o, d, vols, bg), 5)
     steps = torch.zeros(n, dtype=torch.int32, device=dev)
-    volume_march(o, d, vols, bg, steps=steps)
+    empty = torch.zeros(n, dtype=torch.int32, device=dev)
+    warps = torch.zeros(2, dtype=torch.int64, device=dev)
+    volume_march(o, d, vols, bg, steps=steps, empty=empty, warps=warps)
     total = int(steps.sum(dtype=torch.int64))
+    n_empty = int(empty.sum(dtype=torch.int64))
+    warp_iters, warp_empty = (int(x) for x in warps)
+    full = (WIDTH, HEIGHT, VOLUME_RES, MULTI_RES, MULTI_N) == (
+        1920, 1080, 256, 128, 3)
+    steps_same = total == VOLUME_STEPS[label] if full else None
     t_bytes = volume_bytes(n, vols) / PEAK_BYTES_S * 1e3
     t_ops = total * FLOP_STEP / PEAK_F32_S * 1e3
+    # the tables, built anew: pad, window reductions, prefix counts
+    pack_ms = min(cuda_ms(lambda: tvol.build_pack(
+        vols.texels, vols.transfer, tvol.BRICK), 1) for _ in range(3))
     # permuted volumes: the same image
     perm = torch.arange(vols.num_volumes - 1, -1, -1, device=dev)
     pvols = Volumes(vols.lo[perm], vols.hi[perm], vols.texels[perm],
@@ -2033,8 +2145,12 @@ def volume_phase(label, scene, cam, dev, entries, ptx):
         tex, grid, mode="bilinear", padding_mode="border",
         align_corners=False), 5)
     good = (hit_mm == 0 and depth_mm == 0 and max_abs <= VOLUME_ATOL
-            and same_frame and perm_same)
-    form = ptx.get("volume count=0", {})
+            and same_frame and perm_same and steps_same is not False
+            and 0 <= warp_empty <= warp_iters)
+    shared = int(tvol.transfer_form(vols.num_volumes,
+                                    vols.transfer.shape[1]) == "shared")
+    form = ptx.get(f"volume count=0 shared={shared}", {})
+    loop = sass.get(f"volume count=0 shared={shared}") or {}
     log(f"kernel volume_march [{label}, volume_march.cu]: compared "
         f"{3 * COMPARE_LANES} lanes hit_mismatch={hit_mm} depth_mismatch="
         f"{depth_mm} max_abs_color={max_abs:.3e} "
@@ -2043,11 +2159,19 @@ def volume_phase(label, scene, cam, dev, entries, ptx):
         f"{perm_same} | lanes={n} "
         f"ms={ms:.4f} "
         f"plain_ms({COMPARE_LANES} lanes)={plain_ms:.3f} steps={total} "
-        f"(mean {total / n:.1f}, max {int(steps.max())}) bound_ms="
+        f"(mean {total / n:.1f}, max {int(steps.max())}; earlier designs' "
+        f"{VOLUME_STEPS[label]} at full size: "
+        f"{STEPS_NOTE[steps_same]}) "
+        f"empty_steps={n_empty} ({n_empty / max(total, 1):.4f}) "
+        f"warp_iterations={warp_iters} all_empty={warp_empty} "
+        f"({warp_empty / max(warp_iters, 1):.4f}) bound_ms="
         f"{max(t_bytes, t_ops):.4f} "
         f"({'bytes' if t_bytes >= t_ops else 'operations'}) "
+        f"volume_pack_ms={pack_ms:.4f} "
         f"grid_sample_step_ms={gs_ms:.4f} registers={form.get('regs')} "
         f"stack={form.get('stack')} spills={form.get('spill')} "
+        f"sass_step_loop={loop.get('loop')} (empty path "
+        f"{loop.get('empty_path')}, global loads {loop.get('loads')}) "
         f"{'OK' if good else 'FAIL'}")
     ok &= good
     entries.append({
@@ -2060,14 +2184,68 @@ def volume_phase(label, scene, cam, dev, entries, ptx):
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
         "library_ms": None, "grid_sample_step_ms": gs_ms, "lanes": n,
         "steps": total, "steps_max": int(steps.max()),
+        "empty_steps": n_empty, "empty_share": n_empty / max(total, 1),
+        "warp_iterations": warp_iters, "warp_all_empty": warp_empty,
+        "warp_all_empty_share": warp_empty / max(warp_iters, 1),
+        "forms": forms, "volume_pack_ms": pack_ms, "brick": tvol.BRICK,
+        "sass_step_loop": loop.get("loop"),
+        "sass_empty_path": loop.get("empty_path"),
         "flop_step": FLOP_STEP, "hit_mismatch": hit_mm,
         "depth_mismatch": depth_mm, "registers": form.get("regs"),
         "stack": form.get("stack"), "spills": form.get("spill"),
         "launches_training_step": 0, "phase": label})
+    # the brick table: its kernel against its plain version
+    good, bricks = bricks_check(label, vols, cold.get("volume_bricks", 0))
+    ok &= good
+    entries.append(bricks)
     out.update(frame_s=frame_s, frame_times=times, warm_s=warm_s,
                kernel_ms=ms, plain_ms=plain_ms, steps=total, bound_ms=max(
-                   t_bytes, t_ops), hit_fraction=hit)
+                   t_bytes, t_ops), hit_fraction=hit, empty_steps=n_empty,
+               volume_pack_ms=pack_ms, bricks_ms=bricks["ms"])
     return ok, out
+
+
+def bricks_check(label, vols, launches):
+    """The brick table kernel (vsnray_volume_bricks) against its plain
+    version (kernels/volume.py::brick_table, pack_bits) on the card, on
+    the scene's texels and transfer; its time beside the plain
+    version's and a max pooling of the same windows (the lo and hi it
+    takes, for reference: no PyTorch call builds the table)."""
+    B = tvol.BRICK
+    padded = tvol.pad_texels(vols.texels)
+    ktab, kbits = tvol.brick_kernel(padded, vols.transfer, B)
+    ptab = tvol.brick_table(vols.texels, vols.transfer, B, padded)
+    pbits = tvol.pack_bits(ptab)
+    mism = int((ktab != ptab).sum()) + int((kbits != pbits).sum())
+    ms = cuda_ms(lambda: tvol.brick_kernel(padded, vols.transfer, B), 5)
+    plain_ms = cuda_ms(lambda: tvol.pack_bits(tvol.brick_table(
+        vols.texels, vols.transfer, B, padded)), 3)
+    pool_ms = cuda_ms(lambda: torch.nn.functional.max_pool3d(
+        padded[:, None, 1:, 1:, 1:], B + 1, B, ceil_mode=True), 5)
+    n = ktab.numel()
+    # the padded texels read once, the prefix counts, the table and its
+    # words written; a min and a max of each window's texels
+    t_bytes = (padded.numel() * 4 + vols.transfer.shape[0]
+               * (vols.transfer.shape[1] + 1) * 8 + n + kbits.numel() * 4
+               ) / PEAK_BYTES_S * 1e3
+    t_ops = n * 2 * (B + 1) ** 3 / PEAK_F32_S * 1e3
+    good = mism == 0 and launches == 1
+    log(f"kernel volume_bricks [{label}, volume_march.cu]: bricks={n} "
+        f"(B={B}) empty={int(ktab.sum())} mismatches vs plain={mism} "
+        f"launches in the first frame={launches} ms={ms:.4f} "
+        f"plain_ms={plain_ms:.4f} max_pool3d_ms={pool_ms:.4f} bound_ms="
+        f"{max(t_bytes, t_ops):.4f} "
+        f"({'bytes' if t_bytes >= t_ops else 'operations'}) "
+        f"{'OK' if good else 'FAIL'}")
+    return good, {
+        "name": f"volume_bricks_{label.replace(' ', '_')}", "route": "cuda",
+        "source": VOLUME_SOURCE, "entry": "vsnray_volume_bricks",
+        "replaces": VOLUME_REPLACES, "mode_key": "volume_bricks",
+        "launches": launches, "max_abs_err": float(mism), "ms": ms,
+        "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "library_ms": None, "max_pool3d_ms": pool_ms, "bricks": n,
+        "brick": B, "empty_bricks": int(ktab.sum()), "phase": label}
 
 
 def volume_bwd_bytes(n, vols):
@@ -2209,7 +2387,7 @@ def volume_grad_phase(label, scene, cam, dev, entries, ptx):
     finite = all(bool(torch.isfinite(x).all()) for x in (loss, g_tex, g_tr))
     step_ok = (finite and float(g_tex.abs().max()) > 0
                and float(g_tr.abs().max()) > 0
-               and step_launches == {"volume_march": 1,
+               and step_launches == {"volume_march": 1, "volume_bricks": 1,
                                      "volume_march_bwd": 1})
     # the backward kernel alone on the step's rays: its time and bound
     bg = torch.tensor(RENDER_BG, device=dev)
@@ -2416,7 +2594,8 @@ def cli_phase(dev, tmp):
         "volume", ["--scene", "builtin:volume", "--algorithm", "volume",
                    "-o", f"{tmp}/volume.png"])
     good, _ = image_ok(written(lines)) if rc else (False, None)
-    record("volume", good and launches == {"volume_march": 1}, wall,
+    record("volume", good and launches == {"volume_march": 1,
+                                           "volume_bricks": 1}, wall,
            launches)
 
     # (f) the main path's frame through the elastic scheduler, resumed
@@ -3294,13 +3473,16 @@ def main() -> int:
             scene, cam, params, x, y, color, dev, entries, check_modes)
         all_ok &= good
         ptx = ptxas_report(info["log"])
+        sass = {name: step_loop(ins)
+                for name, ins in kernel_sass(info["path"]).items()
+                if name.startswith("volume count=")}
         vscene, vcam = volume_scene(VOLUME_RES, device=dev)
         good, slice9["volume"] = volume_phase("volume", vscene, vcam, dev,
-                                              entries, ptx)
+                                              entries, ptx, sass)
         all_ok &= good
         mscene, mcam = multi_volume_scene(MULTI_RES, MULTI_N, device=dev)
         good, slice9["multi_volume"] = volume_phase(
-            "multi volume", mscene, mcam, dev, entries, ptx)
+            "multi volume", mscene, mcam, dev, entries, ptx, sass)
         all_ok &= good
         del mscene
     flat9 = {k: v for part in ("textures", "spectral")

@@ -26,7 +26,7 @@ torch.set_num_threads(1)
 KS = (8, 16, 24, 32, 40)   # the unrolled sizes, and two run-time-K ones
 ENTRIES = ("vsnray_traverse_binned", "vsnray_traverse_coherent",
            "vsnray_traverse_lbvh", "vsnray_volume_march",
-           "vsnray_volume_march_bwd")
+           "vsnray_volume_march_bwd", "vsnray_volume_bricks")
 
 
 def _takes(entry, heap, two_pass, fanout, half_skip, K):
@@ -83,7 +83,8 @@ def test_launch_form_entry(K, any_hit):
 
 def test_sources_and_counts():
     """The library is built from the five kernel sources, each holding
-    one entry point, and no other source sits beside them (radix trees run
+    one entry point but volume_march.cu, which also holds its brick
+    table's, and no other source sits beside them (radix trees run
     traverse_binned.cu's lane walk; the LBVH tier's flat trees
     traverse_lbvh.cu; the volume renderer volume_march.cu and its
     backward volume_march_bwd.cu);
@@ -96,12 +97,13 @@ def test_sources_and_counts():
     assert sorted(p.name for p in trav._CUDA_DIR.glob("*.cu")) == names
     for src in trav.SOURCES:
         text = src.read_text()
-        assert [e for e in ENTRIES if f'extern "C" int {e}(' in text] == [
-            {"traverse_binned.cu": "vsnray_traverse_binned",
-             "traverse_coherent.cu": "vsnray_traverse_coherent",
-             "traverse_lbvh.cu": "vsnray_traverse_lbvh",
-             "volume_march.cu": "vsnray_volume_march",
-             "volume_march_bwd.cu": "vsnray_volume_march_bwd"}[src.name]]
+        assert [e for e in ENTRIES if f'extern "C" int {e}(' in text] == {
+            "traverse_binned.cu": ["vsnray_traverse_binned"],
+            "traverse_coherent.cu": ["vsnray_traverse_coherent"],
+            "traverse_lbvh.cu": ["vsnray_traverse_lbvh"],
+            "volume_march.cu": ["vsnray_volume_march",
+                                "vsnray_volume_bricks"],
+            "volume_march_bwd.cu": ["vsnray_volume_march_bwd"]}[src.name]
     assert set(trav.ENTRY_LAUNCHES) == set(ENTRIES)
     trav.ENTRY_LAUNCHES["vsnray_traverse_coherent"] += 1
     trav.reset_launch_counts()

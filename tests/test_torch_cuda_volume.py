@@ -11,6 +11,18 @@ refusal of tables larger than a block may hold, the tie rule of the
 opacity clip at a = 0, and the gradients to rays and boxes (``o``, ``d``,
 ``lo``, ``hi``) of a loss that reads colour and depth.
 
+The forward kernel skips the fetches of steps in bricks that
+``volume_pack``'s table marks empty; the skip tests hold it bit for bit
+(colour, hit, depth and the saved composite, NaN as NaN) to
+``march_plain`` and to the plain re-march of tests/volume_steps.py, and
+its counting form's steps and empty steps to that re-march's, on grids
+of 13 x 20 x 37 texels: every brick empty (the colour is the background
+exactly), none empty, half empty, rays grazing the box's faces (base
+cells at -1 and at n - 1), NaN and infinite texels, three overlapping
+boxes, in the shared-memory and the global transfer forms, and a table
+too large for shared memory, whose form is chosen by its size; the
+tables built on the card (vsnray_volume_bricks) equal the CPU's.
+
 Marked ``cuda``: each test skips itself when torch.cuda.is_available() is
 False (decided inside the fixture, never at import).  On a GPU machine:
 
@@ -37,8 +49,11 @@ from visionaray_torch.scenes import volume_demo
 from visionaray_torch.sched import render as trender
 from visionaray_torch.sched.render import _pixel_grid
 
+from volume_steps import march_steps
+
 pytestmark = pytest.mark.cuda
 BG = (0.1, 0.4, 1.0, 1.0)
+DHW = (13, 20, 37)
 
 
 @pytest.fixture(scope="module")
@@ -108,14 +123,19 @@ def test_step_cap(cuda):
 
 
 def test_render_launches_once(cuda):
+    """One march a frame; the first frame also builds the brick table
+    (one vsnray_volume_bricks launch), the next reuses it."""
     scene, cam = volume_demo.volume_scene(32, device=cuda)
-    trav.reset_launch_counts()
-    rt = trender.render(scene, cam, 64, 64, algo="volume")
-    torch.cuda.synchronize()
-    assert trav.LAUNCHES["volume_march"] == 1
-    assert trav.ENTRY_LAUNCHES["vsnray_volume_march"] == 1
-    assert sum(trav.LAUNCHES.values()) == 1
-    assert bool(torch.isfinite(rt.color).all())
+    for bricks in (1, 0):
+        trav.reset_launch_counts()
+        rt = trender.render(scene, cam, 64, 64, algo="volume")
+        torch.cuda.synchronize()
+        assert trav.LAUNCHES["volume_march"] == 1
+        assert trav.ENTRY_LAUNCHES["vsnray_volume_march"] == 1
+        assert trav.LAUNCHES["volume_bricks"] == bricks
+        assert trav.ENTRY_LAUNCHES["vsnray_volume_bricks"] == bricks
+        assert sum(trav.LAUNCHES.values()) == 1 + bricks
+        assert bool(torch.isfinite(rt.color).all())
 
 
 def _cos(a, b):
@@ -328,3 +348,153 @@ def test_backward_transfer_adds_counted(cuda, make):
     assert 0 < adds <= 8 * n_steps
     for k in ("texels", "transfer"):
         assert _rel(got[k], ref[k]) <= 1e-6
+
+
+def _nan_equal(a, b):
+    return torch.equal(torch.isnan(a), torch.isnan(b)) and torch.equal(
+        torch.nan_to_num(a, nan=0.0), torch.nan_to_num(b, nan=0.0))
+
+
+def _skip_volumes(case, dev):
+    """(volumes, rays o, d) of one skip case, from seeded numpy inputs."""
+    rng = np.random.default_rng(len(case))
+    V = 3 if case == "three_overlapping" else 1
+    g = rng.uniform(0.0, 1.0, (V, 1, 4, 4, 4)).astype(np.float32) ** 3
+    texels = torch.nn.functional.interpolate(
+        torch.as_tensor(g), size=DHW, mode="trilinear",
+        align_corners=True)[:, 0]
+    T = 32
+    t = torch.linspace(0.0, 1.0, T)
+    transfer = torch.as_tensor(rng.uniform(0.0, 1.0, (V, T, 4))
+                               .astype(np.float32))
+    transfer[..., 3] = torch.where(t < 0.3, 0.0, transfer[..., 3] + 0.05)
+    lo = [[-1.0, -1.0, -1.0]]
+    hi = [[1.0, 1.0, 1.0]]
+    if case == "all_empty":
+        transfer[..., 3] = 0.0
+    elif case == "none_empty":
+        transfer[..., 3] = 0.05 + transfer[..., 3]
+    elif case == "half_empty":
+        texels[:, :DHW[0] // 2] = 0.0
+    elif case == "nonfinite_texels":
+        flat = texels.reshape(-1)
+        idx = torch.as_tensor(rng.choice(flat.numel(), 6, replace=False))
+        flat[idx[:3]] = float("nan")
+        flat[idx[3:5]] = float("inf")
+        flat[idx[5:]] = -float("inf")
+    elif case == "three_overlapping":
+        lo = [[-1.0, -1.0, -1.0], [-0.3, -0.6, -0.5], [0.2, -1.1, -0.2]]
+        hi = [[1.0, 1.0, 1.0], [1.3, 0.6, 0.7], [1.6, 0.5, 1.4]]
+    vols = tvol.Volumes.create(lo, hi, texels.numpy(), transfer.numpy(),
+                               device=dev)
+    if case == "grazing":
+        # along the faces y = -1 and y = 1, tilted by 1e-7, and along the
+        # edges: base cells at -1 and at n - 1
+        z = torch.linspace(-0.99, 0.99, 64)
+        o = torch.stack([torch.full_like(z, -3.0),
+                         torch.where(torch.arange(64) % 2 == 0, -1.0, 1.0),
+                         z], -1)
+        d = torch.tensor([1.0, 1e-7, 0.0]).expand(64, 3).clone()
+        d[1::2, 1] = -1e-7
+        edge = torch.tensor([[-3.0, -1.0, -1.0], [-3.0, 1.0, 1.0],
+                             [0.0, -3.0, 1.0], [1.0, -3.0, -1.0]])
+        edge_d = torch.tensor([[1.0, 0.0, 0.0], [1.0, 0.0, 0.0],
+                               [0.0, 1.0, 0.0], [0.0, 1.0, 0.0]])
+        o = torch.cat([o, edge])
+        d = torch.cat([d, edge_d])
+        return vols, o.to(dev), d.to(dev)
+    n = 1024
+    dirs = rng.normal(size=(n, 3))
+    o = 3.0 * dirs / np.linalg.norm(dirs, axis=1, keepdims=True)
+    d = rng.uniform(-0.8, 0.8, (n, 3)) - o
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    return (vols, torch.as_tensor(o.astype(np.float32), device=dev),
+            torch.as_tensor(d.astype(np.float32), device=dev))
+
+
+def _skip_bit_equal(o, d, vols, form):
+    """The kernel (counting form and not) against the plain re-march and
+    march_plain, bit for bit; returns the re-march's record."""
+    bg = torch.tensor(BG, device=o.device)
+    n = o.shape[0]
+    steps = torch.zeros(n, dtype=torch.int32, device=o.device)
+    empty = torch.zeros(n, dtype=torch.int32, device=o.device)
+    warps = torch.zeros(2, dtype=torch.int64, device=o.device)
+    kc, kh, kd, kdst = tvol._launch(o, d, vols, bg, 1.0, steps=steps,
+                                    save_dst=True, empty=empty, warps=warps,
+                                    form=form)
+    c2, h2, d2, _ = tvol._launch(o, d, vols, bg, 1.0, form=form)
+    run = march_steps(o, d, vols, bg)
+    pc, ph, pd = tvol.march_plain(o, d, vols, bg)
+    torch.cuda.synchronize()
+    assert run["changed"] == 0
+    for got in (kc, c2):
+        assert _nan_equal(got, pc)
+    assert _nan_equal(kc, run["color"])
+    assert _nan_equal(kdst, run["dst"])
+    for got_h, got_d in ((kh, kd), (h2, d2)):
+        assert torch.equal(got_h, ph)
+        assert _nan_equal(got_d, pd)
+    assert torch.equal(steps.long(), run["steps"])
+    assert torch.equal(empty.long(), run["empty"])
+    total, all_empty = (int(x) for x in warps)
+    assert 0 <= all_empty <= total <= int(run["steps"].sum())
+    return run
+
+
+SKIP_CASES = ["all_empty", "none_empty", "half_empty", "grazing",
+              "nonfinite_texels", "three_overlapping"]
+
+
+@pytest.mark.parametrize("form", ["shared", "global"])
+@pytest.mark.parametrize("case", SKIP_CASES)
+def test_skip_bit_equal(cuda, case, form):
+    vols, o, d = _skip_volumes(case, cuda)
+    trav.reset_launch_counts()
+    run = _skip_bit_equal(o, d, vols, form)
+    assert trav.VARIANT_LAUNCHES == {f"volume_march/transfer_{form}": 2}
+    steps, empty = int(run["steps"].sum()), int(run["empty"].sum())
+    assert steps > 0
+    if case == "all_empty":
+        assert empty == steps
+        bg = torch.tensor(BG, device=cuda)
+        assert torch.equal(run["color"], bg.expand_as(run["color"]))
+    elif case == "none_empty":
+        assert empty == 0
+    elif case in ("half_empty", "three_overlapping", "nonfinite_texels"):
+        assert 0 < empty < steps
+
+
+def test_transfer_form_by_size(cuda):
+    """4,096 entries (64 KiB) take the global form, 64 the shared one;
+    both bit-equal to the plain version."""
+    scene, cam = volume_demo.volume_scene(32, device=cuda)
+    x, y = _pixel_grid(48, 48, cuda)
+    ray = cam.primary_rays(x, y, 48, 48)
+    o, d = ray.ori.contiguous(), ray.dir.contiguous()
+    for T, form in ((64, "shared"), (4096, "global")):
+        vols = _long_tables(scene.volumes, T)
+        trav.reset_launch_counts()
+        _, steps = _same(o, d, vols)
+        assert trav.VARIANT_LAUNCHES == {f"volume_march/transfer_{form}": 1}
+        run = _skip_bit_equal(o, d, vols, None)
+        assert int(run["empty"].sum()) > 0
+        assert torch.equal(steps.long(), run["steps"])
+
+
+@pytest.mark.parametrize("case", ["half_empty", "nonfinite_texels",
+                                  "three_overlapping"])
+def test_pack_on_the_card_equals_the_cpu_pack(cuda, case):
+    """The tables built on the card (vsnray_volume_bricks) are the CPU's
+    (brick_table, pack_bits), NaN texels included."""
+    vols, _, _ = _skip_volumes(case, cuda)
+    cpu = tvol.Volumes(lo=vols.lo.cpu(), hi=vols.hi.cpu(),
+                       texels=vols.texels.cpu(), transfer=vols.transfer.cpu())
+    for brick in (4, 8):
+        trav.reset_launch_counts()
+        got = tvol.build_pack(vols.texels, vols.transfer, brick)
+        assert trav.LAUNCHES["volume_bricks"] == 1
+        ref = tvol.build_pack(cpu.texels, cpu.transfer, brick)
+        assert torch.equal(got.table.cpu(), ref.table)
+        assert torch.equal(got.bits.cpu(), ref.bits)
+        assert _nan_equal(got.padded.cpu(), ref.padded)

@@ -16,9 +16,13 @@ The march runs through ``volume_march``:
 
 - on CUDA tensors it launches ``vsnray_volume_march``
   (``ops/cuda/volume_march.cu``, built into the library of
-  ops/traverse.py) and adds one to ``LAUNCHES["volume_march"]`` and
-  ``ENTRY_LAUNCHES["vsnray_volume_march"]``; the kernel stops a ray's march
-  at its first masked step;
+  ops/traverse.py) and adds one to ``LAUNCHES["volume_march"]``,
+  ``ENTRY_LAUNCHES["vsnray_volume_march"]`` and the launch's transfer form
+  in ``VARIANT_LAUNCHES``; the kernel stops a ray's march at its first
+  masked step, and skips the fetches of a step whose brick
+  ``volume_pack``'s table marks empty (its colour is unchanged by them).
+  The table is built on the card by ``vsnray_volume_bricks`` (counted in
+  ``LAUNCHES["volume_bricks"]``) once per texels and transfer;
 - on CPU tensors it runs ``march_plain``, the JAX function line for line,
   every one of the 512 masked steps of every rank.
 
@@ -38,20 +42,28 @@ gradients vary in their last bits from run to run.
 
 from __future__ import annotations
 
+import weakref
 from dataclasses import dataclass
 from typing import Any
 
 import torch
+import torch.nn.functional as F
 
 import visionaray_torch.ops.traverse as trav
 from visionaray_torch.core.types import Ray, ResultRecord
 from visionaray_torch.device import resolve_device
 from visionaray_torch.ops.intersect import intersect_aabb
+from visionaray_torch.ops.traversal import _cache_of, _version
 
 MAX_STEPS = 512
 ENTRY = "vsnray_volume_march"
 ENTRY_BWD = "vsnray_volume_march_bwd"
+ENTRY_BRICKS = "vsnray_volume_bricks"
 _EXIT_EVERY = 16   # march_plain(early_exit=True): steps between checks
+BRICK = 4                  # cells a side of the march's empty bricks, 2^k
+TR_SMEM_MAX = 48 * 1024    # transfer bytes a block holds (volume_march.cu)
+_XT_LIMIT = 2.0 ** 30      # |transfer coordinate| the skip allows
+_ENTRY_LIMIT = 2.0 ** 100  # |transfer value| an empty entry may have
 
 
 @dataclass
@@ -226,9 +238,173 @@ def _check(o, d, volumes: Volumes, bg):
         raise ValueError("volume_march: 2^31 texels or more")
 
 
+def brick_minmax(padded, brick: int):
+    """(lo, hi): the min and the max of the texels over each brick's
+    window, texels [B b, B b + B] of every axis clamped to the grid:
+    (V, nbz, nby, nbx) each, nb = ceil(n / B), from ``padded``
+    (pad_texels: its high border is texel n, a copy of n - 1, and a
+    window clipped at n + 1 covers the rest of the clamp).  NaN
+    propagates (max pooling's rule)."""
+    x = padded[:, None, 1:, 1:, 1:]
+    hi = F.max_pool3d(x, brick + 1, brick, ceil_mode=True)
+    lo = -F.max_pool3d(-x, brick + 1, brick, ceil_mode=True)
+    return lo[:, 0], hi[:, 0]
+
+
+def brick_table(texels, transfer, brick: int = BRICK, padded=None):
+    """(V, nbz, nby, nbx) bool: True where a brick of ``brick``^3 cells is
+    empty, so that the march may skip a step whose base cell (each axis
+    clamped into the grid) lies in it: every transfer value such a step
+    can classify has alpha <= 0 and finite RGB.
+
+    Its trilinear corners lie in texels [B b, B b + B] of each axis
+    (clamped), of range [lo, hi]; its sample s sums 8 products of those
+    texels with weights in [0, 1] whose sum is 1 within 3 ulp, so s lies
+    within 15 u M of [lo, hi] (u = 2^-24, M = max(|lo|, |hi|)), and the
+    kernel's f32 xt = s T - 0.5 within 18 u (M T + 1) of [lo T - 0.5,
+    hi T - 0.5]; e = 2^-16 (M T + 1) covers it.  So t0 = floor(xt) lies in
+    [floor(lo T - 0.5 - e), floor(hi T - 0.5 + e)], t1 = t0 + 1, and
+    clamped to [0, T - 1] both read entries of that range widened by one
+    above.  A brick is empty when its texels are finite, |xt| stays below
+    2^30 (t0 exact, ft in [0, 1]), and every entry of its range is
+    finite, within 2^100 (the lerp of two cannot overflow) and of alpha
+    <= 0 (so is the lerp's, and with dt finite and >= 0, which the kernel
+    checks, the opacity is exactly 0).  A prefix count of the entries
+    that are not answers each brick's range.  ``padded``:
+    pad_texels(texels), where the caller holds it."""
+    if padded is None:
+        padded = pad_texels(texels)
+    V = texels.shape[0]
+    T = transfer.shape[1]
+    lo, hi = (t.double() for t in brick_minmax(padded, brick))
+    e = 2.0 ** -16 * (torch.maximum(lo.abs(), hi.abs()) * T + 1.0)
+    a = lo * T - 0.5 - e
+    b = hi * T - 0.5 + e
+    fits = (a > -_XT_LIMIT) & (b < _XT_LIMIT)   # NaN and inf fail
+    i0 = torch.floor(torch.where(fits, a, 0.0)).clamp(0, T - 1).long()
+    i1 = (torch.floor(torch.where(fits, b, 0.0)) + 1).clamp(0, T - 1).long()
+    prefix = bad_prefix(transfer)
+    n_bad = (torch.gather(prefix, 1, i1.reshape(V, -1) + 1)
+             - torch.gather(prefix, 1, i0.reshape(V, -1)))
+    return fits & (n_bad == 0).reshape(i0.shape)
+
+
+def bad_prefix(transfer):
+    """(V, T + 1) int64: the count of transfer entries below each index
+    that an empty brick may not reach (not finite, beyond 2^100 or of
+    alpha > 0)."""
+    tr = transfer.detach()
+    good = (tr.abs() <= _ENTRY_LIMIT).all(-1) & (tr[..., 3] <= 0)
+    return F.pad(torch.cumsum((~good).long(), dim=1), (1, 0))
+
+
+def pack_bits(table):
+    """A bool table as int32 words, bit j of word w = entry 32 w + j of
+    the flat table (the kernel reads them unsigned)."""
+    flat = table.reshape(-1).to(torch.int64)
+    n = flat.numel()
+    words = -(-n // 32)
+    flat = F.pad(flat, (0, words * 32 - n)).reshape(words, 32)
+    w = (flat << torch.arange(32, device=flat.device)).sum(dim=1)
+    return torch.where(w >= 2 ** 31, w - 2 ** 32, w).to(torch.int32)
+
+
+def pad_texels(texels):
+    """(V, D+2, H+2, W+2): the texels with a replicated one-texel border."""
+    return F.pad(texels.detach()[:, None], (1, 1, 1, 1, 1, 1),
+                 mode="replicate")[:, 0].contiguous()
+
+
+@dataclass
+class VolumePack:
+    """The march kernel's tables of one (texels, transfer) pair."""
+
+    padded: Any    # (V, D+2, H+2, W+2) f32, pad_texels
+    table: Any     # (V, nbz, nby, nbx) bool, brick_table
+    bits: Any      # int32 words, pack_bits(table)
+    brick: int
+
+
+def brick_kernel(padded, transfer, brick: int):
+    """(table, bits) of brick_table and pack_bits, by one
+    vsnray_volume_bricks launch on CUDA tensors (counted in
+    ``LAUNCHES["volume_bricks"]``)."""
+    V = padded.shape[0]
+    D, H, W = (n - 2 for n in padded.shape[1:])
+    T = transfer.shape[1]
+    nb = [-(-n // brick) for n in (D, H, W)]
+    table = torch.empty((V, *nb), dtype=torch.bool, device=padded.device)
+    bits = torch.zeros(-(-table.numel() // 32), dtype=torch.int32,
+                       device=padded.device)
+    prefix = bad_prefix(transfer).contiguous()
+    with torch.cuda.device(padded.device):
+        stream = torch.cuda.current_stream(padded.device).cuda_stream
+        err = trav._library().vsnray_volume_bricks(
+            padded.data_ptr(), prefix.data_ptr(), table.data_ptr(),
+            bits.data_ptr(), V, D, H, W, T, brick.bit_length() - 1, nb[2],
+            nb[1], nb[0], stream)
+    if err != 0:
+        raise RuntimeError(f"{ENTRY_BRICKS} launch failed: cudaError {err}")
+    trav.LAUNCHES["volume_bricks"] += 1
+    trav.ENTRY_LAUNCHES[ENTRY_BRICKS] += 1
+    return table, bits
+
+
+def build_pack(texels, transfer, brick: int = BRICK) -> VolumePack:
+    """The kernel's tables of (texels, transfer), built anew: the brick
+    table by ``brick_kernel`` on CUDA tensors, by ``brick_table`` on CPU
+    tensors."""
+    with torch.no_grad():
+        padded = pad_texels(texels)
+        if texels.device.type == "cpu":
+            table = brick_table(texels, transfer, brick, padded)
+            bits = pack_bits(table)
+        elif texels.device.type == "cuda":
+            table, bits = brick_kernel(padded, transfer, brick)
+        else:
+            raise ValueError(f"volume_pack: no kernel for {texels.device}")
+        return VolumePack(padded=padded, table=table, bits=bits,
+                          brick=brick)
+
+
+def volume_pack(volumes: Volumes) -> VolumePack:
+    """The kernel's padded texels and brick table of ``volumes`` (bricks
+    of BRICK^3 cells), built on their device at first use and kept with
+    the texels tensor: a later march reuses them while the texels and
+    the transfer are the same tensors, unwritten (their ``_version``; an
+    inference tensor keeps none, so there identity alone) and BRICK is
+    the same.  An optimizer's in-place write gets a new pack."""
+    brick = BRICK
+    if brick < 1 or brick & (brick - 1):
+        raise ValueError(f"volume_pack: brick {brick} is not a power of 2")
+    texels, transfer = volumes.texels, volumes.transfer
+    D, H, W = texels.shape[1:]
+    if (D + 2) * (H + 2) * (W + 2) >= 2 ** 31:
+        raise ValueError(f"volume_pack: a padded volume of {(D, H, W)} "
+                         f"texels holds 2^31 or more; the kernel indexes "
+                         f"one with an int32")
+    cache = _cache_of(texels)
+    key = (brick, _version(texels), _version(transfer))
+    ref = cache.get("volume_transfer")
+    if cache.get("volume_key") == key and ref is not None \
+            and ref() is transfer:
+        return cache["volume_pack"]
+    pack = build_pack(texels, transfer, brick)
+    cache.update(volume_key=key, volume_transfer=weakref.ref(transfer),
+                 volume_pack=pack)
+    return pack
+
+
+def transfer_form(V: int, T: int) -> str:
+    """Where the march kernel reads the transfer tables: ``shared`` when
+    every table fits a block's TR_SMEM_MAX bytes, else ``global``."""
+    return "shared" if V * T * 16 <= TR_SMEM_MAX else "global"
+
+
 def _launch(o, d, volumes: Volumes, bg, step_scale, steps=None,
-            save_dst=False):
-    """One vsnray_volume_march launch: (color, hit, depth, dst or None)."""
+            save_dst=False, empty=None, warps=None, form=None):
+    """One vsnray_volume_march launch: (color, hit, depth, dst or None).
+    ``form``: the transfer form, ``transfer_form``'s by default."""
     n = o.shape[0]
     color = torch.empty((n, 4), dtype=torch.float32, device=o.device)
     hit = torch.empty((n,), dtype=torch.bool, device=o.device)
@@ -238,19 +414,36 @@ def _launch(o, d, volumes: Volumes, bg, step_scale, steps=None,
     if n == 0:
         return color, hit, depth, dst
     V, D, H, W = volumes.texels.shape
+    T = volumes.transfer.shape[1]
+    form = transfer_form(V, T) if form is None else form
+    if form not in ("shared", "global") or (
+            form == "shared" and V * T * 16 > TR_SMEM_MAX):
+        raise ValueError(f"volume_march: no transfer form {form!r} for "
+                         f"{V} tables of {T} entries")
+    pack = volume_pack(volumes)
+    nbz, nby, nbx = pack.table.shape[1:]
     args = [x.detach().contiguous() for x in (
-        o, d, volumes.lo, volumes.hi, volumes.texels, volumes.transfer, bg)]
+        o, d, volumes.lo, volumes.hi, pack.padded, volumes.transfer)]
+    if args[-1].data_ptr() % 16:
+        args[-1] = args[-1].clone()   # read as float4
+    args += [pack.bits, bg.detach().contiguous()]
+
+    def ptr(x):
+        return None if x is None else x.data_ptr()
+
     with torch.cuda.device(o.device):
         stream = torch.cuda.current_stream(o.device).cuda_stream
         err = trav._library().vsnray_volume_march(
             *[x.data_ptr() for x in args], color.data_ptr(), hit.data_ptr(),
-            depth.data_ptr(), None if dst is None else dst.data_ptr(),
-            None if steps is None else steps.data_ptr(), n, V, D, H, W,
-            volumes.transfer.shape[1], float(step_scale), stream)
+            depth.data_ptr(), ptr(dst), ptr(steps), ptr(empty), ptr(warps),
+            n, V, D, H, W, T, pack.brick.bit_length() - 1, nbx, nby, nbz,
+            int(form == "shared"), float(step_scale), stream)
     if err != 0:
         raise RuntimeError(f"{ENTRY} launch failed: cudaError {err}")
     trav.LAUNCHES["volume_march"] += 1
     trav.ENTRY_LAUNCHES[ENTRY] += 1
+    key = f"volume_march/transfer_{form}"
+    trav.VARIANT_LAUNCHES[key] = trav.VARIANT_LAUNCHES.get(key, 0) + 1
     return color, hit, depth, dst
 
 
@@ -349,27 +542,38 @@ class _KernelMarch(torch.autograd.Function):
 
 
 def volume_march(o, d, volumes: Volumes, bg, step_scale: float = 1.0,
-                 steps=None):
+                 steps=None, empty=None, warps=None):
     """(color (N, 4), hit (N,), depth (N,)) of lanes ``o``, ``d`` (N, 3)
-    f32.  CUDA tensors launch the kernel (``steps``: an optional (N,) int32
-    tensor it fills with each ray's steps taken), and its backward kernel
-    where rays, boxes, texels, transfer or bg require grad; CPU tensors
-    run ``march_plain``."""
+    f32.  CUDA tensors launch the kernel, and its backward kernel where
+    rays, boxes, texels, transfer or bg require grad; CPU tensors run
+    ``march_plain``.  The kernel's counting form: ``steps``, an (N,)
+    int32 tensor it fills with each ray's steps taken; with it, optionally
+    ``empty``, the same for the steps it skipped in empty bricks, and
+    ``warps``, a (2,) int64 tensor it adds its warp-iterations and those
+    whose every lane skipped to."""
     _check(o, d, volumes, bg)
     if o.device.type == "cpu":
         return march_plain(o, d, volumes, bg, step_scale)
     if o.device.type != "cuda":
         raise ValueError(f"volume_march: no kernel for {o.device}")
-    if steps is not None and (tuple(steps.shape) != (o.shape[0],)
-                              or steps.dtype != torch.int32
-                              or steps.device != o.device):
-        raise ValueError("volume_march: steps must be int32 (n,) on the "
-                         "rays' device")
+    for name, x, shape, dtype in (("steps", steps, (o.shape[0],),
+                                   torch.int32),
+                                  ("empty", empty, (o.shape[0],),
+                                   torch.int32),
+                                  ("warps", warps, (2,), torch.int64)):
+        if x is not None and (tuple(x.shape) != shape or x.dtype != dtype
+                              or x.device != o.device):
+            raise ValueError(f"volume_march: {name} must be {dtype} "
+                             f"{shape} on the rays' device")
+    if steps is None and (empty is not None or warps is not None):
+        raise ValueError("volume_march: empty and warps need steps (the "
+                         "counting form)")
     inputs = (o, d, volumes.lo, volumes.hi, volumes.texels,
               volumes.transfer, bg)
     if not (torch.is_grad_enabled() and any(x.requires_grad
                                             for x in inputs)):
-        return _launch(o, d, volumes, bg, step_scale, steps)[:3]
+        return _launch(o, d, volumes, bg, step_scale, steps, empty=empty,
+                       warps=warps)[:3]
     if steps is not None:
         raise ValueError("volume_march: the counting form takes no "
                          "gradient")

@@ -102,21 +102,24 @@ TWO_PASS_CAP_FRAC = 0.08  # cluster_closest_hit(two_pass=True) ray cap
 # and the volume renderer (kernels/volume.py::volume_march):
 #   volume_march      one ray march over every volume of the scene
 #   volume_march_bwd  its backward: texel and transfer gradients
+#   volume_bricks     the march's brick table, once per texels and transfer
 LAUNCHES = {"closest": 0, "any": 0, "binned_closest": 0, "binned_any": 0,
             "radix_closest": 0, "radix_any": 0, "c1_closest": 0,
             "c1_any": 0, "lbvh_closest": 0, "lbvh_any": 0, "lbvh_multi": 0,
             "sphere_closest": 0, "sphere_any": 0, "volume_march": 0,
-            "volume_march_bwd": 0}
-# Kernel launches per (mode, fanout, half_skip), keyed by variant_key, and
-# per (LBVH mode, leaf form), keyed by traversal.leaf_variant_key: which
-# form of the kernel each launch ran.
+            "volume_march_bwd": 0, "volume_bricks": 0}
+# Kernel launches per (mode, fanout, half_skip), keyed by variant_key, per
+# (LBVH mode, leaf form), keyed by traversal.leaf_variant_key, and per
+# transfer form of the volume march (kernels/volume.py::transfer_form):
+# which form of the kernel each launch ran.
 VARIANT_LAUNCHES: dict = {}
 # Kernel launches per C entry point: which kernel each mode ran.
 ENTRY_LAUNCHES = {"vsnray_traverse_binned": 0,
                   "vsnray_traverse_coherent": 0,
                   "vsnray_traverse_lbvh": 0,
                   "vsnray_volume_march": 0,
-                  "vsnray_volume_march_bwd": 0}
+                  "vsnray_volume_march_bwd": 0,
+                  "vsnray_volume_bricks": 0}
 
 _CUDA_DIR = Path(__file__).resolve().parent / "cuda"
 SOURCES = (_CUDA_DIR / "traverse_binned.cu",
@@ -207,9 +210,13 @@ def bind_library(lib_path) -> ctypes.CDLL:
             # rays, max_t, packed nodes and primitives, 2 outputs,
             # counters; 8 ints; the stream
             ("vsnray_traverse_lbvh", [p] * 8 + [i] * 8 + [p]),
-            # rays, boxes, texels, transfer, bg, 3 outputs, dst, steps; n,
-            # V, D, H, W, T; step_scale; the stream
-            ("vsnray_volume_march", [p] * 12 + [i] * 6 + [f, p]),
+            # rays, boxes, padded texels, transfer, brick bits, bg, 3
+            # outputs, dst, steps, empty steps, warps; n, V, D, H, W, T,
+            # shift, nbx, nby, nbz, shared; step_scale; the stream
+            ("vsnray_volume_march", [p] * 15 + [i] * 11 + [f, p]),
+            # padded texels, prefix counts, table, bits; V, D, H, W, T,
+            # shift, nbx, nby, nbz; the stream
+            ("vsnray_volume_bricks", [p] * 4 + [i] * 9 + [p]),
             # rays, boxes, texels, transfer, bg, dst, dL/dcolor, 5
             # gradients (texels, transfer, ori, dir, boxes), the counts;
             # n, V, D, H, W, T; step_scale; the stream
