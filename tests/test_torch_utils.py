@@ -4,10 +4,9 @@ package's on the CPU:
 - ``bvh_debug``: ``node_depths``, ``bvh_stats`` and the outline image of
   the same LBVH and of the same treelet ClusterBVH (JAX's build, carried
   across by convert.py) equal to JAX's, and ``dump_bvh``'s file;
-- ``metrics``: ``bounce_histogram`` counts on the Cornell box equal to
-  JAX's (the same rays and sampler seeds), ``frame_metrics``,
-  ``scaling_efficiency``, ``MetricsLog``, ``Timer``, ``FrameCounter`` and
-  ``memory_stats`` (empty on the CPU);
+- ``metrics``: ``frame_metrics`` and ``scaling_efficiency`` equal to
+  JAX's, ``Timer`` and ``memory_stats`` (empty on the CPU); its tracing
+  is tests/test_torch_tracing.py's;
 - ``checkpoint``: round trips of render targets (float and typed), nested
   trees and an Adam optimizer's state, a ``RenderCheckpoint`` written by
   JAX loaded by the port and one written by the port loaded by JAX, the
@@ -16,8 +15,6 @@ package's on the CPU:
 """
 
 import dataclasses
-import json
-import time
 
 import jax.numpy as jnp
 import numpy as np
@@ -25,27 +22,18 @@ import pytest
 import torch
 
 from visionaray_tpu.core.scene import TriangleMesh as JMesh
-from visionaray_tpu.core.types import Ray as JRay
-from visionaray_tpu.kernels.params import KernelParams as JParams
 from visionaray_tpu.ops import lbvh as jl
 from visionaray_tpu.ops.pallas.cluster_bvh import build_cluster_bvh
-from visionaray_tpu.ops.sampling import Sampler as JSampler
-from visionaray_tpu.scenes import cornell_box as j_cornell
 from visionaray_tpu.scenes import random_triangles
 from visionaray_tpu.sched.render import RenderTarget as JRenderTarget
-from visionaray_tpu.sched.render import _pixel_grid as j_pixel_grid
 from visionaray_tpu.utils import bvh_debug as jdbg
 from visionaray_tpu.utils import checkpoint as jck
 from visionaray_tpu.utils import metrics as jmetrics
 
 from visionaray_torch import convert
 from visionaray_torch.core.scene import TriangleMesh
-from visionaray_torch.core.types import Ray
 from visionaray_torch.io.pixel_format import make_typed_render_target
-from visionaray_torch.kernels.params import KernelParams
 from visionaray_torch.ops import lbvh as tl
-from visionaray_torch.ops.sampling import Sampler
-from visionaray_torch.scenes import cornell_box as t_cornell
 from visionaray_torch.sched.render import RenderTarget
 from visionaray_torch.utils import bvh_debug as tdbg
 from visionaray_torch.utils import cache as tcache
@@ -97,47 +85,15 @@ def test_dump_bvh_writes_the_outline(trees, tmp_path):
         (tmp_path / "j.png").read_bytes()
 
 
-def test_bounce_histogram_matches_jax():
-    js, jcam = j_cornell()
-    ts, _ = t_cornell(device=CPU)
-    n = 12
-    x, y = j_pixel_grid(n, n)
-    # jittered off the pixel centres: rays through the centres graze the
-    # box's triangle edges, where JAX's and the port's brute-force tests
-    # round apart (2 of 144 lanes)
-    jitter = np.random.default_rng(5).uniform(-0.4, 0.4, (n * n, 2))
-    jray = jcam.primary_rays(x, y, n, n, jnp.asarray(jitter, jnp.float32))
-    pid = np.arange(n * n, dtype=np.uint32)
-    jcounts = jmetrics.bounce_histogram(
-        JParams.create(js, num_bounces=4, epsilon=1e-3), jray,
-        JSampler.seed(0, jnp.asarray(pid), jnp.uint32(1)))
-    tcounts = tmetrics.bounce_histogram(
-        KernelParams.create(ts, num_bounces=4, epsilon=1e-3),
-        Ray(ori=torch.as_tensor(np.array(jray.ori)),
-            dir=torch.as_tensor(np.array(jray.dir))),
-        Sampler.seed(0, torch.as_tensor(pid.astype(np.int64)), 1))
-    assert tcounts.tolist() == np.asarray(jcounts).tolist()
-    assert tcounts[0] == n * n and tcounts[-1] < tcounts[0]
-
-
-def test_metrics_helpers_match_jax(tmp_path):
+def test_metrics_helpers_match_jax():
     for algo in ("simple", "pathtracing"):
         assert tmetrics.frame_metrics(64, 32, 2, 5, 0.25, 1000, algo, 2) \
             == jmetrics.frame_metrics(64, 32, 2, 5, 0.25, 1000, algo, 2)
     table = {1: 10.0, 2: 19.0, 4: 36.0}
     assert tmetrics.scaling_efficiency(table) == \
         jmetrics.scaling_efficiency(table)
-    log = tmetrics.MetricsLog(str(tmp_path / "m.jsonl"))
-    log.emit({"a": 1})
-    log.emit({"b": 2.5})
-    lines = (tmp_path / "m.jsonl").read_text().splitlines()
-    assert [json.loads(s) for s in lines] == log.records
     timer = tmetrics.Timer()
     assert timer.elapsed(torch.zeros(3)) >= 0.0
-    counter = tmetrics.FrameCounter(window=10.0)
-    assert counter.register_frame() == 0.0
-    time.sleep(0.01)
-    assert counter.register_frame() > 0.0
     assert tmetrics.memory_stats("cpu") == {}
 
 

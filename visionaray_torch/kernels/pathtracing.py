@@ -26,6 +26,7 @@ save_only_these_names("traced_hits")).
 
 from __future__ import annotations
 
+import contextlib
 import math
 
 import torch
@@ -40,16 +41,19 @@ from visionaray_torch.ops.trace import any_hit, closest_hit
 from visionaray_torch.shading.lights import AreaLights, light_groups
 from visionaray_torch.shading.spectrum import from_rgb, to_rgb
 from visionaray_torch.shading.surface import get_surface
+from visionaray_torch.utils import metrics
 
 
 def _nee_direct(lights, nc, surf, n, view_dir, isect_pos, eps, ua, ub, ul,
-                trace_any, mask=None, reversed_shadow: bool = True):
+                trace_any, mask=None, reversed_shadow: bool = True,
+                bounce=None):
     """One-sample next-event estimate of the direct term at isect_pos:
     uniform light pick, area lights sampled over their surface with the
     cos_l * A / (pi r^2) factor.  Lanes outside ``mask``, facing away from
     the light or behind an area light fire no shadow ray (max_t = -1).
     ``reversed_shadow``: the shadow segment is traced from the light end,
-    else from the surface."""
+    else from the surface.  The lanes that fire count in
+    ``bounce.shadow[bounce]`` (utils/metrics.py)."""
     groups = light_groups(lights)
     total = sum(g.num_lights for g in groups)
     batch = tuple(isect_pos.shape[:-1])
@@ -88,6 +92,7 @@ def _nee_direct(lights, nc, surf, n, view_dir, isect_pos, eps, ua, ub, ul,
     fire = (torch.sum(n * wi, dim=-1) > 0.0) & (g > 0.0)
     if mask is not None:
         fire = fire & mask
+    metrics.count("bounce.shadow", fire, bounce)
     mt = torch.where(fire, dist - 2.0 * eps, -1.0)
     if reversed_shadow:
         # from the light end: shadow rays of one light share (nearly) one
@@ -119,6 +124,14 @@ def scene_tracer(params: KernelParams, binned: bool):
     return trace_closest, trace_any
 
 
+@contextlib.contextmanager
+def _recompute(tape):
+    """The recompute's context: ``tape``'s traversals replayed, and the
+    spans inside marked as the recompute's (utils/metrics.py)."""
+    with traverse.replaying(tape), metrics.recomputing():
+        yield
+
+
 def _checkpointed(body):
     """``body`` under a checkpoint whose recompute replays the traversals
     recorded in its forward.  The sampler is counter-based, so no RNG
@@ -127,8 +140,7 @@ def _checkpointed(body):
         tape = traverse.TraceTape()
         return checkpoint(
             body, *args, use_reentrant=False, preserve_rng_state=False,
-            context_fn=lambda: (traverse.recording(tape),
-                                traverse.replaying(tape)))
+            context_fn=lambda: (traverse.recording(tape), _recompute(tape)))
     return run
 
 
@@ -141,7 +153,17 @@ def pathtrace_loop(ray: Ray, sampler: Sampler, *, num_bounces: int,
     handles bounce 0 only.  ``recompute``: under autograd, each bounce is
     checkpointed and recomputed in backward (replaying its traversals);
     the ring tracer of parallel/sharded_pt.py turns it off, since its
-    traces are collective and must not run again in one rank's backward."""
+    traces are collective and must not run again in one rank's backward.
+
+    Spans (utils/metrics.py), tagged ``bounce=b``, tile each bounce in
+    order: ``bounce.closest`` (the closest walk with the hit record and
+    surface gathers), ``bounce.shade`` (the hit's bookkeeping, samples and
+    the material sample), ``bounce.nee`` (the light sample and shadow
+    walk), ``bounce.shade`` again (weights, carry updates, the next ray);
+    without NEE, closest and the two shade spans back to back.  Counters: ``bounce.lanes[b]``
+    (lanes handed to the closest walk), ``bounce.live[b]`` (those with
+    ``active``, the walk's max_t > 0), ``bounce.shadow[b]`` (lanes firing
+    a shadow ray)."""
     batch = ray.batch_shape
     dev = ray.dir.device
     amb3 = torch.as_tensor(amb3, dtype=torch.float32, device=dev)
@@ -149,60 +171,74 @@ def pathtrace_loop(ray: Ray, sampler: Sampler, *, num_bounces: int,
     def bounce_body(tr, bounce, ray, sampler, active, dst, acc, first_hit,
                     first_t, prev_delta):
         trace_closest, trace_any = tr
-        hit_rec, surf = trace_closest(ray, torch.where(active, FLT_MAX, -1.0))
+        metrics.count("bounce.lanes", active.numel(), bounce)
+        metrics.count("bounce.live", active, bounce)
+        with metrics.span("bounce.closest", bounce=bounce):
+            hit_rec, surf = trace_closest(ray, torch.where(active, FLT_MAX,
+                                                           -1.0))
 
-        exited = active & ~hit_rec.hit
+        with metrics.span("bounce.shade", bounce=bounce):
+            exited = active & ~hit_rec.hit
+            if nee:
+                acc = torch.where(exited[..., None], acc + dst * amb3, acc)
+            else:
+                dst = torch.where(exited[..., None], dst * amb3, dst)
+            active = active & hit_rec.hit
+
+            is_first = bounce == 0
+            if is_first:
+                first_hit = hit_rec.hit
+                first_t = hit_rec.t
+
+            view_dir = -ray.dir
+            n = faceforward(surf.shading_normal, view_dir,
+                            surf.geometric_normal)
+
+            if nee:
+                (u_lobe, u1, u2, ul, ua, ub), sampler = sampler.next_n(6)
+            else:
+                (u_lobe, u1, u2), sampler = sampler.next_n(3)
+            src, refl_dir, pdf = surf.materials.sample(n, view_dir, u_lobe,
+                                                       u1, u2)
+            zero_pdf = pdf <= 0.0
+            emissive = surf.materials.is_emissive()
+
+            if nee:
+                isect_pos0 = ray.at(torch.where(hit_rec.hit, hit_rec.t, 1.0))
+                # mirror lanes: shade() is 0, so their shadow ray is dropped
+                take_d = active & ~emissive & ~surf.materials.is_specular()
+
         if nee:
-            acc = torch.where(exited[..., None], acc + dst * amb3, acc)
-        else:
-            dst = torch.where(exited[..., None], dst * amb3, dst)
-        active = active & hit_rec.hit
+            with metrics.span("bounce.nee", bounce=bounce):
+                direct = _nee_direct(lights, nc, surf, n, view_dir,
+                                     isect_pos0, eps, ua, ub, ul, trace_any,
+                                     mask=take_d,
+                                     reversed_shadow=reversed_shadow,
+                                     bounce=bounce)
 
-        is_first = bounce == 0
-        if is_first:
-            first_hit = hit_rec.hit
-            first_t = hit_rec.t
+        with metrics.span("bounce.shade", bounce=bounce):
+            if nee:
+                acc = torch.where(take_d[..., None], acc + dst * direct, acc)
+                # emission counts on the camera ray and after a delta bounce
+                take_e = active & emissive & (is_first | prev_delta)
+                acc = torch.where(take_e[..., None], acc + dst * src, acc)
 
-        view_dir = -ray.dir
-        n = faceforward(surf.shading_normal, view_dir, surf.geometric_normal)
+            safe_pdf = torch.where(zero_pdf, 1.0, pdf)
+            ndotwi = torch.sum(n * refl_dir, dim=-1)
+            weight = torch.where(emissive, 1.0, ndotwi / safe_pdf)
+            src = src * weight[..., None]
 
-        if nee:
-            (u_lobe, u1, u2, ul, ua, ub), sampler = sampler.next_n(6)
-        else:
-            (u_lobe, u1, u2), sampler = sampler.next_n(3)
-        src, refl_dir, pdf = surf.materials.sample(n, view_dir, u_lobe, u1,
-                                                   u2)
-        zero_pdf = pdf <= 0.0
-        emissive = surf.materials.is_emissive()
+            upd = active & ~zero_pdf
+            if nee:
+                upd = upd & ~emissive
+            dst = torch.where(upd[..., None], dst * src, dst)
+            dst = torch.where((zero_pdf & active)[..., None], 0.0, dst)
 
-        if nee:
-            isect_pos0 = ray.at(torch.where(hit_rec.hit, hit_rec.t, 1.0))
-            # mirror lanes: shade() is 0, so their shadow ray is dropped
-            take_d = active & ~emissive & ~surf.materials.is_specular()
-            direct = _nee_direct(lights, nc, surf, n, view_dir, isect_pos0,
-                                 eps, ua, ub, ul, trace_any, mask=take_d,
-                                 reversed_shadow=reversed_shadow)
-            acc = torch.where(take_d[..., None], acc + dst * direct, acc)
-            # emission counts on the camera ray and after a delta bounce
-            take_e = active & emissive & (is_first | prev_delta)
-            acc = torch.where(take_e[..., None], acc + dst * src, acc)
+            active = active & ~emissive & ~zero_pdf
 
-        safe_pdf = torch.where(zero_pdf, 1.0, pdf)
-        ndotwi = torch.sum(n * refl_dir, dim=-1)
-        weight = torch.where(emissive, 1.0, ndotwi / safe_pdf)
-        src = src * weight[..., None]
-
-        upd = active & ~zero_pdf
-        if nee:
-            upd = upd & ~emissive
-        dst = torch.where(upd[..., None], dst * src, dst)
-        dst = torch.where((zero_pdf & active)[..., None], 0.0, dst)
-
-        active = active & ~emissive & ~zero_pdf
-
-        isect_pos = ray.at(torch.where(hit_rec.hit, hit_rec.t, 1.0))
-        ray = Ray(ori=isect_pos + refl_dir * eps, dir=refl_dir)
-        prev_delta = active & surf.materials.is_specular()
+            isect_pos = ray.at(torch.where(hit_rec.hit, hit_rec.t, 1.0))
+            ray = Ray(ori=isect_pos + refl_dir * eps, dir=refl_dir)
+            prev_delta = active & surf.materials.is_specular()
         return (ray, sampler, active, dst, acc, first_hit, first_t,
                 prev_delta)
 

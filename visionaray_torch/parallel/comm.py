@@ -37,6 +37,8 @@ from typing import Any
 import torch
 import torch.distributed as dist
 
+from visionaray_torch.utils import metrics
+
 TILE_AXIS = "tiles"
 
 # transport counters of this process: ring hops and their payload bytes,
@@ -145,22 +147,26 @@ def all_reduce_(t: torch.Tensor, mesh: Mesh) -> torch.Tensor:
 
 def _exchange(t: torch.Tensor, mesh: Mesh, forward: bool) -> torch.Tensor:
     """Send ``t`` one step around the ring (to rank + 1 when ``forward``,
-    else to rank - 1) and receive the same shape from the other side."""
-    nxt = mesh.ranks[(mesh.rank + 1) % mesh.size]
-    prv = mesh.ranks[(mesh.rank - 1) % mesh.size]
-    dst, src = (nxt, prv) if forward else (prv, nxt)
-    send = t.contiguous()
-    stage = _staged(send, mesh)
-    if stage:
-        send = _to_host(send)
-    recv = torch.empty_like(send)
-    ops = [dist.P2POp(dist.isend, send, dst, group=mesh.group),
-           dist.P2POp(dist.irecv, recv, src, group=mesh.group)]
-    for req in dist.batch_isend_irecv(ops):
-        req.wait()
-    STATS["hops"] += 1
-    STATS["hop_bytes"] += send.numel() * send.element_size()
-    return _to_device(recv, t.device) if stage else recv
+    else to rank - 1) and receive the same shape from the other side;
+    the span ``ring.hop`` (utils/metrics.py), tagged with the direction,
+    holds the whole exchange, its wait included."""
+    with metrics.span("ring.hop",
+                      direction="forward" if forward else "backward"):
+        nxt = mesh.ranks[(mesh.rank + 1) % mesh.size]
+        prv = mesh.ranks[(mesh.rank - 1) % mesh.size]
+        dst, src = (nxt, prv) if forward else (prv, nxt)
+        send = t.contiguous()
+        stage = _staged(send, mesh)
+        if stage:
+            send = _to_host(send)
+        recv = torch.empty_like(send)
+        ops = [dist.P2POp(dist.isend, send, dst, group=mesh.group),
+               dist.P2POp(dist.irecv, recv, src, group=mesh.group)]
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+        STATS["hops"] += 1
+        STATS["hop_bytes"] += send.numel() * send.element_size()
+        return _to_device(recv, t.device) if stage else recv
 
 
 class _Hop(torch.autograd.Function):

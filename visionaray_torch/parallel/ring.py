@@ -46,6 +46,7 @@ from visionaray_torch.ops.lbvh import (
     build_lbvh_from_aabbs, morton3d, triangle_aabbs,
 )
 from visionaray_torch.parallel.comm import Mesh, all_gather, hop
+from visionaray_torch.utils import metrics
 
 SHARD_AXIS = "shards"
 
@@ -233,10 +234,15 @@ def _cull(ray: Ray, shard_lo, shard_hi):
 
 def _ring_step(cols, mesh: Mesh):
     """One hop of a payload given as a list of (n, k) f32 columns (ints
-    as f32 values); returns the received columns, split alike."""
+    as f32 values); returns the received columns, split alike.  The
+    packing and the split are each a ``ring.pack`` span
+    (utils/metrics.py)."""
     widths = [c.shape[1] for c in cols]
-    got = hop(torch.cat(cols, dim=1), mesh)
-    return list(torch.split(got, widths, dim=1))
+    with metrics.span("ring.pack"):
+        payload = torch.cat(cols, dim=1)
+    got = hop(payload, mesh)
+    with metrics.span("ring.pack"):
+        return list(torch.split(got, widths, dim=1))
 
 
 def _f(x, n):

@@ -20,6 +20,7 @@ import dataclasses
 import torch
 
 from visionaray_torch.sched.render import render_pixels
+from visionaray_torch.utils import metrics
 
 WIDTH, HEIGHT, SPP = 1920, 1080, 1
 TILE = 1 << 21     # bench.py TILE: lanes rendered per render_pixels call
@@ -56,10 +57,14 @@ def frame_loss(verts, cd, frame, params, cam, x, y, nee: bool = True, *,
 def loss_and_grads(verts, cd, frame, params, cam, x, y, nee: bool = True,
                    **kw):
     """``(loss, (g_verts, g_cd))`` of bench.py's step; ``kw`` as for
-    ``frame_loss`` (width, height, spp, tile)."""
+    ``frame_loss`` (width, height, spp, tile).  Spans (utils/metrics.py):
+    ``step.forward`` around the loss, ``step.backward`` around the
+    gradients (which hold the bounces' recompute)."""
     with torch.enable_grad():
         verts = verts.detach().requires_grad_()
         cd = cd.detach().requires_grad_()
-        loss = frame_loss(verts, cd, frame, params, cam, x, y, nee, **kw)
-        g_verts, g_cd = torch.autograd.grad(loss, (verts, cd))
+        with metrics.span("step.forward"):
+            loss = frame_loss(verts, cd, frame, params, cam, x, y, nee, **kw)
+        with metrics.span("step.backward"):
+            g_verts, g_cd = torch.autograd.grad(loss, (verts, cd))
     return loss.detach(), (g_verts, g_cd)
