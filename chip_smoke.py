@@ -104,7 +104,17 @@ Phases, each of which fails the run (non-zero exit) when it fails:
     in backward, finite non-zero gradients); (d) multi_hit(primary rays,
     k=16) (lbvh_multi_hit_s): one lbvh_multi launch, t sorted along k, slot
     0 the simple frame's hit; (e) the simple frame through phase 13's
-    prim % 7 filter (lbvh_filtered_frame_s), its re-trace launches.  Every
+    prim % 7 filter (lbvh_filtered_frame_s), its re-trace launches; (f) the
+    bounce's two shading kernels (bounce_shade.cu) in (b)'s frame, run
+    anew with the launch counts reset just before: 5 + 5 launches and 5 + 5
+    walks; each launch's outputs held bit for bit to its plain version
+    (ops/bounce_shade.py) on the launch's own inputs, then each launch
+    timed, its plain version timed and its bound taken from the bytes it
+    must move (lane arrays for every lane, the gathers by primitive for
+    the lanes whose walk hit); the fused frame held to the torch body
+    (kernels/pathtracing.py::_torch_body) on the same rays and draws at
+    tests/test_torch_cuda_bounce.py's limit, hit and depth equal; no
+    bounce kernel in (c)'s step.  Every walk's
     launch mode (first, middle and last launch) is held against the plain
     version on COMPARE_LANES lanes: hit equal everywhere, t equal on the
     same ref, ref equal where the nearest hit is unique (any-hit: equal);
@@ -278,11 +288,14 @@ from visionaray_torch.io.obj import load_obj_scene, save_obj
 from visionaray_torch.diff.boundary import (
     boundary_image, build_edge_adjacency, silhouette_mask,
 )
+from visionaray_torch.kernels import pathtracing as pt
 from visionaray_torch.kernels.params import KernelParams
 from visionaray_torch.kernels.volume import Volumes, march_plain, volume_march
+from visionaray_torch.ops import bounce_shade as bs
 from visionaray_torch.ops import sah
 from visionaray_torch.ops.cluster_bvh import build_cluster_bvh
 from visionaray_torch.ops.lbvh import build_lbvh, sah_cost
+from visionaray_torch.ops.sampling import Sampler
 from visionaray_torch.ops.trace import TraceConfig, closest_hit, multi_hit
 from visionaray_torch.parallel import multihost
 from visionaray_torch.sched import step
@@ -358,6 +371,13 @@ MULTI_HIT_K = 16
 LBVH_SOURCE = "visionaray_torch/ops/cuda/traverse_lbvh.cu"
 LBVH_REPLACES = "visionaray_tpu/ops/traversal.py:33"
 LBVH_ENTRY = "vsnray_traverse_lbvh"
+# phase 14f: the bounce's shading kernels (no pallas_call: the card form of
+# the jnp bounce body between the traversals)
+BOUNCE_SOURCE = "visionaray_torch/ops/cuda/bounce_shade.cu"
+BOUNCE_REPLACES = "visionaray_tpu/kernels/pathtracing.py:177"
+# the fused frame against the torch body: tests/test_torch_cuda_bounce.py's
+# limit (share of pixels off by more than 1e-3 in a channel)
+FUSED_PIX_TOL, FUSED_PIX_SHARE = 1e-3, 1e-4
 FLOP_SPHERE = 32                 # ops of one sphere test
 SPHERE_COUNT = 65_536
 # phase 17: textures (JAX's TextureAtlas.pack resolution), and the simple
@@ -1653,18 +1673,28 @@ def lbvh_phase(cpu_mesh, dev, entries):
     ok &= good
     out["lbvh_frame_s"] = out["frame"]["frame_s"]
 
+    # (f) the bounce's two kernels in (b)'s frame
+    with torch.no_grad():
+        good, out["bounce"] = bounce_phase(params, cam, x, y, entries)
+    ok &= good
+
     # (c) the training step on the LBVH
     good, out["step"] = training_step_phase(
         params, cam, x, y, label="lbvh training step",
         modes=("lbvh_closest", "lbvh_any"))
     good &= out["step"]["forward_entries"][LBVH_ENTRY] == sum(
         out["step"]["forward_launches"].values())
+    good &= all(out["step"]["forward_entries"][e] == 0
+                for e in (bs.ENTRY_HIT, bs.ENTRY_CLOSE))
     ok &= good
     out["lbvh_step_s"] = out["step"]["step_s"]
     for e in entries:
         if e.get("phase") == "lbvh nee frame":
             e["launches_training_step"] = \
                 out["step"]["forward_launches"].get(e["mode_key"], 0)
+        if e.get("phase") == "lbvh bounce kernels":
+            e["launches_training_step"] = \
+                out["step"]["forward_entries"].get(e["entry"], 0)
 
     with torch.no_grad():
         # (d) multi_hit on the primary rays
@@ -1731,6 +1761,198 @@ def lbvh_phase(cpu_mesh, dev, entries):
         ok &= good
         out["lbvh_filtered_frame_s"] = out["filtered"]["frame_s"]
     return ok, out, scene, cam
+
+
+class BounceRecorder:
+    """Stands in for ops/bounce_shade.py's shade_hit and shade_close during
+    one frame and keeps the inputs and outputs of every launch, in launch
+    order (the frame writes none of them in place)."""
+
+    def __init__(self):
+        self.hit_fn, self.close_fn = bs.shade_hit, bs.shade_close
+        self.hit, self.close = [], []
+
+    def shade_hit(self, *args):
+        out = self.hit_fn(*args)
+        self.hit.append((args, out))
+        return out
+
+    def shade_close(self, *args):
+        out = self.close_fn(*args)
+        self.close.append((args, out))
+        return out
+
+
+@contextlib.contextmanager
+def bounce_recorded(rec):
+    """shade_hit and shade_close replaced by the BounceRecorder ``rec``."""
+    bs.shade_hit, bs.shade_close = rec.shade_hit, rec.shade_close
+    try:
+        yield rec
+    finally:
+        bs.shade_hit, bs.shade_close = rec.hit_fn, rec.close_fn
+
+
+def _nbytes(*ts):
+    return sum(t.numel() * t.element_size() for t in ts if t is not None)
+
+
+def bounce_bytes(hargs, hk, cargs, ck):
+    """Bytes each kernel of one bounce must move, and the lanes whose
+    closest walk hit.  Lane arrays read for every lane count every lane;
+    what a kernel reads for some lanes only counts those: the triangle's
+    record (48 B), prim id, face normal, material id (and corner normals)
+    gathered where the walk's ref >= 0 (a lane without a hit reads row 0,
+    which stays in cache), the shadow ref where the lane fired, the
+    previous bounce's delta flag where an active lane is emissive.  The
+    material and light tables once."""
+    sh, o, d, ref, state, active, dst, acc, _ = hargs
+    _, _, hit, sref, dst2, acc2, prev, bounce = cargs
+    n = o.shape[0]
+    hits = int((ref >= 0).sum())
+    row = 4 + 48 + 4 + 12 + (0 if sh.scene.mesh.face_normals_binding else 36)
+    tables = _nbytes(sh.mat, sh.lights, sh.amb, sh.eps)
+    hit_b = (_nbytes(o, d, ref, state, active, dst, acc if sh.nee else None)
+             + hits * row + tables
+             + _nbytes(hk.state, hk.carry, hk.first_hit, hk.first_t,
+                       hk.shadow_o, hk.shadow_d, hk.shadow_t, hk.fire,
+                       hk.mid))
+    flags = hit.mid[bs.MID_FLAGS].view(torch.int32)
+    lit = sh.nee and sh.total > 0
+    rows = bs.MID if lit else bs.MID - 6
+    fired = int(((flags & bs.FIRE) != 0).sum()) if lit else 0
+    emis = int((((flags & bs.ACTIVE) != 0)
+                & ((flags & bs.EMISSIVE) != 0)).sum())
+    close_b = (rows * 4 * n + (12 * n if lit else 0) + 4 * fired
+               + _nbytes(dst2, acc2)
+               + (emis if sh.nee and bounce > 0 else 0)
+               + _nbytes(sh.mat, sh.eps)
+               + _nbytes(ck.o, ck.d, ck.max_t, ck.dst, ck.acc, ck.active,
+                         ck.prev_delta))
+    return hit_b, close_b, hits
+
+
+def _outputs_differ(pairs):
+    """(lanes that differ, largest difference) over (kernel, plain) output
+    pairs; NaN equals NaN, -0 equals 0; int32-bit rows as integers."""
+    lanes, big = 0, 0.0
+    for a, p in pairs:
+        if a is None or p is None:
+            lanes += int((a is None) != (p is None))
+            continue
+        if a.dtype != torch.float32:
+            ne = a != p
+        else:
+            ne = (a != p) & ~(torch.isnan(a) & torch.isnan(p))
+            if bool(ne.any()):
+                big = max(big, float((a - p).abs()[ne].max()))
+        lanes += int(ne.reshape(ne.shape[0], -1).any(-1).sum())
+    return lanes, big
+
+
+def bounce_phase(params, cam, x, y, entries):
+    """Phase 14f: the bounce's two kernels in phase 14b's NEE frame."""
+    rec = BounceRecorder()
+    walks = ("lbvh_closest", "lbvh_any")
+    trav.reset_launch_counts()
+    with bounce_recorded(rec):
+        render_pixels(params, cam, x, y, WIDTH, HEIGHT, "pathtracing", SPP,
+                      "jittered_blend", 7, nee=True)
+        torch.cuda.synchronize()
+    counts = {e: trav.ENTRY_LAUNCHES[e] for e in (bs.ENTRY_HIT,
+                                                  bs.ENTRY_CLOSE)}
+    wcounts = {k: trav.LAUNCHES[k] for k in walks}
+    ok = (all(c == BOUNCES for c in counts.values())
+          and all(c == BOUNCES for c in wcounts.values())
+          and len(rec.hit) == len(rec.close) == BOUNCES)
+    log(f"lbvh bounce kernels, the NEE frame {WIDTH}x{HEIGHT}: launches "
+        f"{counts} "
+        f"walks {wcounts} (want {BOUNCES} each) {'OK' if ok else 'FAIL'}")
+
+    hit_fields = ("state", "carry", "first_hit", "first_t", "shadow_o",
+                  "shadow_d", "shadow_t", "fire")
+    close_fields = ("o", "d", "max_t", "dst", "acc", "active", "prev_delta")
+    res = {k: [] for k in ("hit_ms", "close_ms", "hit_plain_ms",
+                           "close_plain_ms", "hit_bytes", "close_bytes",
+                           "hit_lanes", "live_lanes", "hit_diff",
+                           "close_diff", "hit_max", "close_max")}
+    for (hargs, hk), (cargs, ck) in zip(rec.hit, rec.close):
+        # the frame's own outputs against the plain versions on its inputs
+        hp = bs.shade_hit_plain(*hargs)
+        cp = bs.shade_close_plain(*cargs)
+        lanes, big = _outputs_differ(
+            [(getattr(hk, f), getattr(hp, f)) for f in hit_fields]
+            + [(hk.mid[r], hp.mid[r]) for r in range(bs.MID)])
+        res["hit_diff"].append(lanes)
+        res["hit_max"].append(big)
+        lanes, big = _outputs_differ(
+            [(getattr(ck, f), getattr(cp, f)) for f in close_fields])
+        res["close_diff"].append(lanes)
+        res["close_max"].append(big)
+        del hp, cp
+        res["hit_ms"].append(cuda_ms(lambda: bs.shade_hit(*hargs), 10))
+        res["close_ms"].append(cuda_ms(lambda: bs.shade_close(*cargs), 10))
+        res["hit_plain_ms"].append(
+            cuda_ms(lambda: bs.shade_hit_plain(*hargs), 1))
+        res["close_plain_ms"].append(
+            cuda_ms(lambda: bs.shade_close_plain(*cargs), 1))
+        hb, cb, hits = bounce_bytes(hargs, hk, cargs, ck)
+        res["hit_bytes"].append(hb)
+        res["close_bytes"].append(cb)
+        res["hit_lanes"].append(hits)
+        res["live_lanes"].append(int(hargs[5].sum()))
+    n = rec.hit[0][0][1].shape[0]
+    good = (sum(res["hit_diff"]) == 0 and sum(res["close_diff"]) == 0)
+    ok &= good
+    log(f"  per bounce, the frame's launches against the plain versions: "
+        f"hit kernel lanes differing {res['hit_diff']} (largest "
+        f"{max(res['hit_max']):.3g}), close kernel {res['close_diff']} "
+        f"(largest {max(res['close_max']):.3g}) {'OK' if good else 'FAIL'}")
+    del rec
+
+    # the fused frame against the torch body on the same rays and draws
+    ray = cam.primary_rays(x, y, WIDTH, HEIGHT, None)
+    samp = Sampler.seed(5, (y * WIDTH + x).to(torch.int64), 2)
+    fused = pt.pathtracing_kernel(params, ray, samp, nee=True)
+    body = pt._torch_body(params, ray, samp, nee=True)
+    diff = (fused.color - body.color).abs()
+    off = float((diff > FUSED_PIX_TOL).any(-1).float().mean())
+    unequal = int((fused.color != body.color).any(-1).sum())
+    same = (torch.equal(fused.hit, body.hit)
+            and torch.equal(fused.depth, body.depth))
+    good = pt._fused_ok(params) and off <= FUSED_PIX_SHARE and same
+    ok &= good
+    log(f"  the fused frame against the torch body: pix_off={off:.3e} "
+        f"(limit {FUSED_PIX_SHARE}) pixels not bit-equal={unequal} of "
+        f"{diff.shape[0]} largest={float(diff.max()):.3e} hit and depth "
+        f"equal={same} {'OK' if good else 'FAIL'}")
+    del fused, body, diff
+
+    out = dict(bounce_launches=counts, bounce_walk_launches=wcounts,
+               fused_pix_off=off, fused_unequal_pixels=unequal)
+    for kind, entry in (("hit", bs.ENTRY_HIT), ("close", bs.ENTRY_CLOSE)):
+        ms, plain = res[f"{kind}_ms"], res[f"{kind}_plain_ms"]
+        bound = [b / PEAK_BYTES_S * 1e3 for b in res[f"{kind}_bytes"]]
+        log(f"kernel bounce_shade_{kind} [{entry}, bounce_shade.cu]: "
+            f"lanes={n} ms a launch {[round(t, 4) for t in ms]} frame="
+            f"{sum(ms):.4f} bound_ms {[round(t, 4) for t in bound]} frame="
+            f"{sum(bound):.4f} ({100 * sum(bound) / sum(ms):.1f}% of it) "
+            f"plain_ms frame={sum(plain):.3f} hit lanes {res['hit_lanes']}")
+        entries.append({
+            "name": f"bounce_shade_{kind}", "route": "cuda",
+            "source": BOUNCE_SOURCE, "entry": entry,
+            "replaces": BOUNCE_REPLACES, "launches": counts[entry],
+            "max_abs_err": max(res[f"{kind}_max"]), "ms": ms[0],
+            "plain_ms": plain[0], "bound_ms": bound[0], "bound_by": "bytes",
+            "library_ms": None, "lanes": n, "ms_frame": sum(ms),
+            "bound_ms_frame": sum(bound), "plain_ms_frame": sum(plain),
+            "launch_ms": ms, "launch_plain_ms": plain,
+            "launch_bound_ms": bound, "launch_bytes": res[f"{kind}_bytes"],
+            "launch_hit_lanes": res["hit_lanes"],
+            "launch_live_lanes": res["live_lanes"],
+            "lanes_differing": res[f"{kind}_diff"],
+            "phase": "lbvh bounce kernels", "launches_training_step": 0})
+    return ok, out
 
 
 def builders_phase(scene, cam, entries):

@@ -22,6 +22,16 @@ backward keeps only the bounce's carry and its traversal outputs (a
 shading, light sampling -- replaying the recorded traversals, so no kernel
 launches in backward (JAX: jax.checkpoint with
 save_only_these_names("traced_hits")).
+
+``pathtracing_kernel`` picks one of two paths by what it is given.  With
+autograd off, on a triangle scene with a flat LBVH-tier tree, no
+textures, RGB colour, no hit filter and point lights only (``_fused_ok``),
+a bounce is the closest walk, the hit kernel, the shadow walk and the
+close kernel (``_fused_body``, ops/bounce_shade.py: the torch body's
+operations between the walks in two hand-written CUDA kernels; their plain
+versions on the CPU).  Every other input takes the torch body,
+``pathtrace_loop``, which autograd, its recompute and the ring tracer of
+parallel/sharded_pt.py need.
 """
 
 from __future__ import annotations
@@ -35,10 +45,13 @@ from torch.utils.checkpoint import checkpoint
 from visionaray_torch.core.types import FLT_MAX, Ray, ResultRecord
 from visionaray_torch.core.vecmath import faceforward, length
 from visionaray_torch.kernels.params import KernelParams
-from visionaray_torch.ops import traverse
+from visionaray_torch.ops import bounce_shade, traversal, traverse
+from visionaray_torch.ops.lbvh import BVH
 from visionaray_torch.ops.sampling import Sampler
 from visionaray_torch.ops.trace import any_hit, closest_hit
-from visionaray_torch.shading.lights import AreaLights, light_groups
+from visionaray_torch.shading.lights import (
+    AreaLights, PointLights, light_groups,
+)
 from visionaray_torch.shading.spectrum import from_rgb, to_rgb
 from visionaray_torch.shading.surface import get_surface
 from visionaray_torch.utils import metrics
@@ -268,8 +281,91 @@ def pathtrace_loop(ray: Ray, sampler: Sampler, *, num_bounces: int,
     return ResultRecord(color=color, hit=first_hit, depth=first_t)
 
 
-def pathtracing_kernel(params: KernelParams, ray: Ray, sampler: Sampler,
-                       nee: bool = False) -> ResultRecord:
+def _fused_ok(params: KernelParams) -> bool:
+    """Whether ``pathtracing_kernel`` can run the bounce as two hand kernels
+    around the LBVH walks (``_fused_body``): autograd is off, the scene is
+    triangles alone on a flat ``ops.lbvh.BVH`` (LBVH, SAH or SBVH: what
+    ``bvh_traverse`` walks), with no textures, RGB colour, no hit filter
+    and point lights only.  Anything else takes the torch body."""
+    scene = params.scene
+    return (not torch.is_grad_enabled()
+            and isinstance(scene.bvh, BVH) and scene.mesh is not None
+            and scene.spheres is None and scene.planes is None
+            and scene.textures is None and params.hit_filter is None
+            and scene.materials.cd.shape[-1] == 3
+            and all(isinstance(g, PointLights)
+                    for g in light_groups(scene.lights)))
+
+
+def _fused_body(params: KernelParams, ray: Ray, sampler: Sampler,
+                nee: bool) -> ResultRecord:
+    """The bounce loop as four launches a bounce (three without NEE): the
+    closest walk, ``ops/bounce_shade.py::shade_hit``, the shadow walk and
+    ``shade_close``, on flat lanes; the carry means what
+    ``pathtrace_loop``'s does, and the result is its result.  Spans and
+    counters as ``pathtrace_loop``'s: ``bounce.closest`` holds the closest
+    walk, ``bounce.shade`` the hit kernel, ``bounce.nee`` the shadow walk,
+    ``bounce.shade`` the close kernel; ``bounce.shadow`` counts the hit
+    kernel's ``fire``."""
+    scene = params.scene
+    batch = ray.batch_shape
+    dev = ray.dir.device
+    o = ray.ori.reshape(-1, 3).to(torch.float32).contiguous()
+    d = ray.dir.reshape(-1, 3).to(torch.float32).contiguous()
+    n = o.shape[0]
+    state = sampler.state.reshape(-1).contiguous()
+    tables = traversal.prim_tables("triangle", scene.mesh)
+    sh = bounce_shade.Shading.of(params, nee)
+    active = torch.ones((n,), dtype=torch.bool, device=dev)
+    dst = torch.ones((n, 3), dtype=torch.float32, device=dev)
+    acc = torch.zeros((n, 3), dtype=torch.float32, device=dev)
+    first_hit = torch.zeros((n,), dtype=torch.bool, device=dev)
+    first_t = torch.zeros((n,), dtype=torch.float32, device=dev)
+    prev_delta = torch.zeros((n,), dtype=torch.bool, device=dev)
+    max_t = torch.full((n,), FLT_MAX, dtype=torch.float32, device=dev)
+    for bounce in range(params.num_bounces):
+        metrics.count("bounce.lanes", n, bounce)
+        metrics.count("bounce.live", active, bounce)
+        with metrics.span("bounce.closest", bounce=bounce):
+            _, ref = traversal.bvh_traverse(o, d, max_t, scene.bvh,
+                                            "triangle", tables, "closest")
+        with metrics.span("bounce.shade", bounce=bounce):
+            hit = bounce_shade.shade_hit(sh, o, d, ref, state, active, dst,
+                                         acc, bounce)
+        shadow_ref = None
+        if nee:
+            acc = hit.carry
+            with metrics.span("bounce.nee", bounce=bounce):
+                if hit.fire is not None:
+                    metrics.count("bounce.shadow", hit.fire, bounce)
+                    _, shadow_ref = traversal.bvh_traverse(
+                        hit.shadow_o, hit.shadow_d, hit.shadow_t, scene.bvh,
+                        "triangle", tables, "any")
+        else:
+            dst = hit.carry
+        with metrics.span("bounce.shade", bounce=bounce):
+            nxt = bounce_shade.shade_close(sh, d, hit, shadow_ref, dst, acc,
+                                           prev_delta, bounce)
+        if bounce == 0:
+            first_hit, first_t = hit.first_hit, hit.first_t
+        state = hit.state
+        o, d, max_t = nxt.o, nxt.d, nxt.max_t
+        dst, acc, active, prev_delta = (nxt.dst, nxt.acc, nxt.active,
+                                        nxt.prev_delta)
+
+    out = acc if nee else torch.where(active[..., None], 0.0, dst)
+    rgba = torch.cat([out, torch.ones_like(out[..., :1])], dim=-1)
+    color = torch.where(first_hit[..., None], rgba,
+                        torch.as_tensor(params.bg_color, dtype=torch.float32,
+                                        device=dev))
+    return ResultRecord(color=color.reshape(batch + (4,)),
+                        hit=first_hit.reshape(batch),
+                        depth=first_t.reshape(batch))
+
+
+def _torch_body(params: KernelParams, ray: Ray, sampler: Sampler,
+                nee: bool) -> ResultRecord:
+    """``pathtrace_loop`` over the scene's tracers."""
     scene = params.scene
     nc = scene.materials.cd.shape[-1]
     amb3 = params.ambient_color[:3]
@@ -289,3 +385,12 @@ def pathtracing_kernel(params: KernelParams, ray: Ray, sampler: Sampler,
         amb3=amb3, bg_color=params.bg_color,
         eps=params.epsilon, nee=nee,
         reversed_shadow=params.trace.shadow_reversed)
+
+
+def pathtracing_kernel(params: KernelParams, ray: Ray, sampler: Sampler,
+                       nee: bool = False) -> ResultRecord:
+    """Path-traced colour, first hit and depth of ``ray``: through
+    ``_fused_body`` where ``_fused_ok`` holds, else the torch body."""
+    if _fused_ok(params):
+        return _fused_body(params, ray, sampler, nee)
+    return _torch_body(params, ray, sampler, nee)

@@ -105,6 +105,19 @@ def _held(key, tensors) -> bool:
         k is t and v == _version(t) for (k, v), t in zip(key, tensors))
 
 
+def kept(obj, name: str, fn):
+    """``fn(obj)``, kept with ``obj`` under ``name`` while its tensor fields
+    are the same tensors, unwritten (as ``prim_tables`` keeps its
+    tables)."""
+    src = tuple(v for v in vars(obj).values() if isinstance(v, torch.Tensor))
+    cache = _cache_of(obj)
+    if name in cache and _held(cache[name][0], src):
+        return cache[name][1]
+    value = fn(obj)
+    cache[name] = (_key(src), value)
+    return value
+
+
 def prim_tables(prim: str, geom):
     """The kernel's primitive tables of a TriangleMesh (v1, e1, e2) or a
     Spheres group (center, radius), detached and contiguous f32 (a

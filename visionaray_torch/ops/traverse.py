@@ -6,7 +6,9 @@ tier's flat trees go through ops/traversal.py's ``bvh_traverse``, whose
 ``traverse_lbvh.cu`` is built into the same library and counted in the
 same ``LAUNCHES`` / ``ENTRY_LAUNCHES``, as is the volume renderer's march,
 kernels/volume.py's ``volume_march`` over ``volume_march.cu`` and its
-backward over ``volume_march_bwd.cu``):
+backward over ``volume_march_bwd.cu``, and the path tracer's bounce,
+ops/bounce_shade.py over ``bounce_shade.cu``, counted in
+``ENTRY_LAUNCHES`` alone):
 
 - on CUDA tensors it launches a kernel of ``ops/cuda/`` and adds one to
   ``LAUNCHES[mode]`` and to ``ENTRY_LAUNCHES[entry point]``:
@@ -119,14 +121,17 @@ ENTRY_LAUNCHES = {"vsnray_traverse_binned": 0,
                   "vsnray_traverse_lbvh": 0,
                   "vsnray_volume_march": 0,
                   "vsnray_volume_march_bwd": 0,
-                  "vsnray_volume_bricks": 0}
+                  "vsnray_volume_bricks": 0,
+                  "vsnray_bounce_shade_hit": 0,
+                  "vsnray_bounce_shade_close": 0}
 
 _CUDA_DIR = Path(__file__).resolve().parent / "cuda"
 SOURCES = (_CUDA_DIR / "traverse_binned.cu",
            _CUDA_DIR / "traverse_coherent.cu",
            _CUDA_DIR / "traverse_lbvh.cu",
            _CUDA_DIR / "volume_march.cu",
-           _CUDA_DIR / "volume_march_bwd.cu")
+           _CUDA_DIR / "volume_march_bwd.cu",
+           _CUDA_DIR / "bounce_shade.cu")
 _BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / \
     "visionaray_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3",
@@ -220,7 +225,15 @@ def bind_library(lib_path) -> ctypes.CDLL:
             # rays, boxes, texels, transfer, bg, dst, dL/dcolor, 5
             # gradients (texels, transfer, ori, dir, boxes), the counts;
             # n, V, D, H, W, T; step_scale; the stream
-            ("vsnray_volume_march_bwd", [p] * 15 + [i] * 6 + [f, p])):
+            ("vsnray_volume_march_bwd", [p] * 15 + [i] * 6 + [f, p]),
+            # the path tracer's bounce (ops/bounce_shade.py): 16 inputs
+            # (rays, refs, state, carry, scene tables, ambient, epsilon)
+            # and 9 outputs; n, triangles, lights, nee, reversed; the
+            # stream
+            ("vsnray_bounce_shade_hit", [p] * 25 + [i] * 5 + [p]),
+            # directions, the buffer, shadow refs, carry, materials,
+            # epsilon, 7 outputs; n, lights, nee, first; the stream
+            ("vsnray_bounce_shade_close", [p] * 15 + [i] * 4 + [p])):
         fn = getattr(lib, entry, None)
         if fn is None:
             continue
