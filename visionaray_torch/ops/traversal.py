@@ -29,6 +29,15 @@ Contract, per lane: ``(best_t, best_ref)``, best_t = max_t and best_ref =
 each (n, k), unused slots max_t / -1.  Lanes with max_t <= 0 can accept no
 hit and retire at once.
 
+Test counts: the kernel's counting form and the plain version fill an
+(n, 2) i32 tensor with each lane's box tests (2 a visited internal node)
+and primitive tests (1 a primitive tested in a visited leaf); a dead lane
+tests nothing.  While the program's tracing counts tests
+(``utils/metrics.py::counting_tests``), ``bvh_traverse`` asks for them
+itself and counts ``walk.<mode>.rays`` (lanes that tested anything: the
+live lanes), ``walk.<mode>.box`` and ``walk.<mode>.prim``, summed on the
+device; else it neither allocates them nor launches the counting form.
+
 Gradients: the search runs without autograd (through
 ``ops/traverse.py::_traced``, so a checkpointed bounce replays it and
 launches nothing in backward); t, u, v are then recomputed differentiably
@@ -49,6 +58,7 @@ from visionaray_torch.ops.intersect import (
 )
 from visionaray_torch.ops.lbvh import BVH, build_lbvh_from_aabbs
 from visionaray_torch.ops.trace import _closest_filtered, _recompute_hits
+from visionaray_torch.utils import metrics
 
 STACK_DEPTH = 64      # JAX STACK_DEPTH: entries of the per-lane stack
 MODES = ("closest", "any", "multi")
@@ -281,13 +291,13 @@ def bvh_traverse(o, d, max_t, bvh: BVH, prim: str, tables, mode: str,
     """The search of one batch of lanes: ``o``, ``d`` (n, 3), ``max_t``
     (n,) f32; ``tables`` from ``prim_tables``.  Returns (best_t (n,) f32,
     best_ref (n,) i32), or for ``mode="multi"`` (ts, refs) each (n, k).
-    ``counters``: optional (n, 2) i32 tensor the kernel fills with per-lane
-    box tests and primitive tests.  CUDA tensors launch the kernel; CPU
-    tensors run ``traverse_bvh_plain``."""
+    ``counters``: optional (n, 2) i32 tensor filled with per-lane box
+    tests and primitive tests; with none given and the program's tracing
+    counting tests, the walk counts into one of its own and adds the sums
+    to ``walk.<mode>.*``.  CUDA tensors launch the kernel; CPU tensors run
+    ``traverse_bvh_plain``."""
     _check(o, d, max_t, bvh, prim, tables, mode, k)
-    if o.device.type == "cpu":
-        return traverse_bvh_plain(o, d, max_t, bvh, prim, tables, mode, k)
-    if o.device.type != "cuda":
+    if o.device.type not in ("cpu", "cuda"):
         raise ValueError(f"bvh_traverse: no kernel for {o.device}")
     if counters is not None and (tuple(counters.shape) != (o.shape[0], 2)
                                  or counters.dtype != torch.int32
@@ -295,6 +305,26 @@ def bvh_traverse(o, d, max_t, bvh: BVH, prim: str, tables, mode: str,
                                  or not counters.is_contiguous()):
         raise ValueError("bvh_traverse: counters must be contiguous int32 "
                          "(n, 2) on the rays' device")
+    traced = counters is None and metrics.counting_tests()
+    if traced:
+        counters = torch.empty((o.shape[0], 2), dtype=torch.int32,
+                               device=o.device)
+    if o.device.type == "cpu":
+        out = traverse_bvh_plain(o, d, max_t, bvh, prim, tables, mode, k,
+                                 counters)
+    else:
+        out = _launch_counted(o, d, max_t, bvh, prim, tables, mode, k,
+                              counters)
+    if traced:
+        metrics.count(f"walk.{mode}.rays", counters.sum(dim=1) > 0)
+        metrics.count(f"walk.{mode}.box", counters[:, 0])
+        metrics.count(f"walk.{mode}.prim", counters[:, 1])
+    return out
+
+
+def _launch_counted(o, d, max_t, bvh: BVH, prim: str, tables, mode: str,
+                    k: int, counters):
+    """``launch`` on the rays' card and stream, and the launch counters."""
     with torch.cuda.device(o.device):
         stream = torch.cuda.current_stream(o.device).cuda_stream
         out_t, out_ref = launch(trav._library(), o, d, max_t, bvh, prim,
@@ -346,11 +376,14 @@ def _prim_test(prim, tables, o, d, pid):
 
 
 def traverse_bvh_plain(o, d, max_t, bvh: BVH, prim: str, tables, mode: str,
-                       k: int = 1):
+                       k: int = 1, counters=None):
     """The kernel's contract in plain PyTorch: JAX's per-ray walk run in
     lockstep over the live lanes with per-lane masks (a lane that is done
     keeps its state), one node per step.  Every _CHECK_EVERY steps the
-    lanes that are done are written out and dropped (one host sync)."""
+    lanes that are done are written out and dropped (one host sync).
+    ``counters``: optional (n, 2) i32 tensor filled as the kernel fills
+    it: per lane, 2 box tests a visited internal node and one primitive
+    test a primitive tested in a visited leaf."""
     _check(o, d, max_t, bvh, prim, tables, mode, k)
     n = o.shape[0]
     dev = o.device
@@ -368,6 +401,8 @@ def traverse_bvh_plain(o, d, max_t, bvh: BVH, prim: str, tables, mode: str,
     out_t = (max_t[:, None] if multi else max_t).expand(shape).clone()
     out_ref = torch.full(shape, -1, dtype=torch.int64, device=dev)
 
+    if counters is not None:
+        counters.zero_()
     lanes = torch.nonzero(max_t > 0.0).reshape(-1)
     o, d = o[lanes], d[lanes]
     inv = 1.0 / d
@@ -380,6 +415,8 @@ def traverse_bvh_plain(o, d, max_t, bvh: BVH, prim: str, tables, mode: str,
           else max_t[lanes]).clone()
     br = torch.full(bt.shape, -1, dtype=torch.int64, device=dev)
     done = torch.zeros((A,), dtype=torch.bool, device=dev)
+    tests = (None if counters is None
+             else torch.zeros((A, 2), dtype=torch.int32, device=dev))
     idx_k = torch.arange(k, device=dev)
 
     def leaf_refs(slot):
@@ -391,15 +428,21 @@ def traverse_bvh_plain(o, d, max_t, bvh: BVH, prim: str, tables, mode: str,
         for j in range(bvh.max_leaf_size):
             yield torch.clamp_max(first + j, n_refs - 1), j < cnt
 
-    def step(node, sp, stack, bt, br, done):
+    def step(node, sp, stack, bt, br, done, tests):
+        """One node a live lane; adds its tests to ``tests`` in place."""
         live = ~done
         is_leaf = node >= leaf_base
         slot = torch.clamp_min(node - leaf_base, 0)
+        if tests is not None:
+            tests[:, 0] += 2 * (live & ~is_leaf).to(torch.int32)
         for ref, valid in leaf_refs(slot):
             t, hit = _prim_test(prim, tables, o, d, take(prim_ids, ref))
-            ok = live & is_leaf & hit & (t >= 0.0)
+            tested = live & is_leaf
             if valid is not None:
-                ok = ok & valid
+                tested = tested & valid
+            if tests is not None:
+                tests[:, 1] += tested.to(torch.int32)
+            ok = tested & hit & (t >= 0.0)
             if multi:
                 ok = ok & (t < bt[:, k - 1])
                 pos = (t[:, None] >= bt).sum(dim=1)
@@ -457,15 +500,19 @@ def traverse_bvh_plain(o, d, max_t, bvh: BVH, prim: str, tables, mode: str,
     while A > 0:
         for _ in range(_CHECK_EVERY):
             node, sp, stack, bt, br, done = step(node, sp, stack, bt, br,
-                                                 done)
+                                                 done, tests)
         fin = torch.nonzero(done).reshape(-1)
         if fin.numel():
             out_t.index_copy_(0, lanes[fin], bt[fin])
             out_ref.index_copy_(0, lanes[fin], br[fin])
+            if counters is not None:
+                counters.index_copy_(0, lanes[fin], tests[fin])
             keep = torch.nonzero(~done).reshape(-1)
             lanes, o, d, inv = lanes[keep], o[keep], d[keep], inv[keep]
             node, sp, stack = node[keep], sp[keep], stack[keep]
             bt, br, done = bt[keep], br[keep], done[keep]
+            if tests is not None:
+                tests = tests[keep]
             A = lanes.numel()
     return out_t, out_ref.to(torch.int32)
 

@@ -19,10 +19,14 @@ Tracing: spans and counters inside the program, off by default.
   tensor whose sum is added: a mask counts its true entries) to the
   counter ``name`` (``name[index]`` for an index).  Tensor sums stay on
   the device until ``snapshot()``.  Nothing is counted inside a recompute.
-- ``enable(on)``, ``reset()``, ``snapshot()``: switch, clear, and read
-  the spans and counters since the last reset.  The walk's launch
-  counters and the ring's transport counters stay with their owners,
-  ``ops/traverse.py`` and ``parallel/comm.py``.
+- ``enable(on, tests=False)``, ``reset()``, ``snapshot()``: switch,
+  clear, and read the spans and counters since the last reset;
+  ``enabled()``: whether a count would be kept now (on, outside a
+  recompute).  ``tests`` also has the walk count its box and primitive
+  tests (``counting_tests()``; ``ops/traversal.py``'s ``walk.<mode>.*``):
+  a slower form of the walk, so a stretch whose spans are timed leaves it
+  off.  The walk's launch counters and the ring's transport counters stay
+  with their owners, ``ops/traverse.py`` and ``parallel/comm.py``.
 
 Off, ``span`` returns one shared no-op object and ``count`` returns at
 once: neither reads a clock, makes a CUDA event, allocates or launches.
@@ -135,6 +139,7 @@ class _Recorder:
 
     def __init__(self):
         self.on = False
+        self.tests = False      # the walk counts its tests too
         self.cuda = False
         self.recompute = False  # inside a checkpoint's recompute
         self.spans = []         # [name, tags, t0_ns, t1_ns, events or None]
@@ -193,10 +198,24 @@ class _Span:
         return False
 
 
-def enable(on: bool = True):
-    """Turn tracing on or off (off by default)."""
+def enable(on: bool = True, tests: bool = False):
+    """Turn tracing on or off (off by default); ``tests``: with it on, the
+    walk counts its tests too (``counting_tests``)."""
     _REC.on = bool(on)
+    _REC.tests = _REC.on and bool(tests)
     _REC.cuda = _REC.on and torch.cuda.is_available()
+
+
+def enabled() -> bool:
+    """Whether tracing is on and the work is outside a recompute: whether
+    ``count`` would keep a value."""
+    return _REC.on and not _REC.recompute
+
+
+def counting_tests() -> bool:
+    """Whether the walk should count its box and primitive tests now:
+    tracing on with ``tests``, outside a recompute."""
+    return _REC.tests and enabled()
 
 
 def reset():
@@ -215,7 +234,7 @@ def span(name: str, **tags):
 def count(name: str, value, index=None):
     """Add ``value`` to counter ``name`` (at ``index``) while tracing is on
     and outside a recompute."""
-    if not _REC.on or _REC.recompute:
+    if not enabled():
         return
     if isinstance(value, torch.Tensor):
         value = value.detach().sum()
