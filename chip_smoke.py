@@ -101,7 +101,9 @@ Phases, each of which fails the run (non-zero exit) when it fails:
     (lbvh_simple_frame_s), exactly one lbvh_closest launch; (b) the 5-bounce
     NEE frame of phase 3 (lbvh_frame_s), its launches per mode; (c) the
     full-width training step (lbvh_step_s, peak memory, 0 traversal launches
-    in backward, finite non-zero gradients); (d) multi_hit(primary rays,
+    in backward, finite non-zero gradients), its forward through the fused
+    bounce (5 + 5 shading launches; none in the backward, which recomputes
+    the torch body); (d) multi_hit(primary rays,
     k=16) (lbvh_multi_hit_s): one lbvh_multi launch, t sorted along k, slot
     0 the simple frame's hit; (e) the simple frame through phase 13's
     prim % 7 filter (lbvh_filtered_frame_s), its re-trace launches; (f) the
@@ -113,8 +115,11 @@ Phases, each of which fails the run (non-zero exit) when it fails:
     must move (lane arrays for every lane, the gathers by primitive for
     the lanes whose walk hit); the fused frame held to the torch body
     (kernels/pathtracing.py::_torch_body) on the same rays and draws at
-    tests/test_torch_cuda_bounce.py's limit, hit and depth equal; no
-    bounce kernel in (c)'s step.  Every walk's
+    tests/test_torch_cuda_bounce.py's limit, hit and depth equal; (g) (c)'s
+    step again, fused and through the torch body on the same inputs and
+    draws: loss and gradients within sponza_lbvh.train's limits of
+    ``correct`` (STEP_GAPS), no shading kernel in the torch body's.  Every
+    walk's
     launch mode (first, middle and last launch) is held against the plain
     version on COMPARE_LANES lanes: hit equal everywhere, t equal on the
     same ref, ref equal where the nearest hit is unique (any-hit: equal);
@@ -298,6 +303,7 @@ from visionaray_torch.ops.lbvh import build_lbvh, sah_cost
 from visionaray_torch.ops.sampling import Sampler
 from visionaray_torch.ops.trace import TraceConfig, closest_hit, multi_hit
 from visionaray_torch.parallel import multihost
+from visionaray_torch.sched import render as srender
 from visionaray_torch.sched import step
 from visionaray_torch.sched.elastic import render_frame_elastic
 from visionaray_torch.sched.render import _pixel_grid, render, render_pixels
@@ -378,6 +384,9 @@ BOUNCE_REPLACES = "visionaray_tpu/kernels/pathtracing.py:177"
 # the fused frame against the torch body: tests/test_torch_cuda_bounce.py's
 # limit (share of pixels off by more than 1e-3 in a channel)
 FUSED_PIX_TOL, FUSED_PIX_SHARE = 1e-3, 1e-4
+# the fused training step against the torch body: sponza_lbvh.train's
+# limits of ``correct`` (benchmark/checks/sponza_lbvh.train.json)
+STEP_GAPS = {"loss_gap": 1e-4, "gv_gap": 5e-3, "gcd_gap": 1e-3}
 FLOP_SPHERE = 32                 # ops of one sphere test
 SPHERE_COUNT = 65_536
 # phase 17: textures (JAX's TextureAtlas.pack resolution), and the simple
@@ -964,6 +973,7 @@ def training_step_phase(params, cam, x, y, label="training step",
         torch.cuda.synchronize()
         bwd_s = time.perf_counter() - t0
         bwd = dict(trav.LAUNCHES)
+        bwd_entries = dict(trav.ENTRY_LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
 
     times = []
@@ -992,15 +1002,16 @@ def training_step_phase(params, cam, x, y, label="training step",
         f"|g_verts|={float(g_v.norm()):.6e} |g_cd|={float(g_c.norm()):.6e} "
         f"finite={finite} nonzero={nonzero}")
     log(f"  forward launches={fwd} by kernel form={fwd_variants} by entry "
-        f"point={fwd_entries} backward launches={bwd} "
-        f"{'OK' if ok else 'FAIL'}")
+        f"point={fwd_entries} backward launches={bwd} by entry point="
+        f"{bwd_entries} {'OK' if ok else 'FAIL'}")
     return ok, dict(step_s=step_s, mrays_per_s=rays / step_s / 1e6,
                     step_times=times, forward_s=fwd_s, backward_s=bwd_s,
                     peak_mem_bytes=peak, step_mem_bytes=peak - base_mem,
                     loss=float(loss.detach()),
                     forward_launches=fwd, forward_variants=fwd_variants,
                     forward_entries=fwd_entries,
-                    backward_launches=bwd_launches)
+                    backward_launches=bwd_launches,
+                    backward_entries=bwd_entries)
 
 
 def grad_check(device, lbvh=False):
@@ -1684,8 +1695,16 @@ def lbvh_phase(cpu_mesh, dev, entries):
         modes=("lbvh_closest", "lbvh_any"))
     good &= out["step"]["forward_entries"][LBVH_ENTRY] == sum(
         out["step"]["forward_launches"].values())
-    good &= all(out["step"]["forward_entries"][e] == 0
+    # the fused bounce under autograd: the two shading kernels once a
+    # bounce in the forward, none in the backward (its recompute is the
+    # torch body)
+    good &= all(out["step"]["forward_entries"][e] == BOUNCES
+                and out["step"]["backward_entries"][e] == 0
                 for e in (bs.ENTRY_HIT, bs.ENTRY_CLOSE))
+    ok &= good
+
+    # (g) the same step through the torch body
+    good, out["step_vs_torch"] = fused_step_phase(params, cam, x, y)
     ok &= good
     out["lbvh_step_s"] = out["step"]["step_s"]
     for e in entries:
@@ -1848,6 +1867,52 @@ def _outputs_differ(pairs):
                 big = max(big, float((a - p).abs()[ne].max()))
         lanes += int(ne.reshape(ne.shape[0], -1).any(-1).sum())
     return lanes, big
+
+
+def fused_step_phase(params, cam, x, y):
+    """Phase 14g: the full-width training step of (c) through the fused
+    bounce, ``pathtracing_kernel``'s pick under autograd, and through the
+    torch body (``_torch_body`` in render's kernel table), on the same
+    inputs and draws: the fused step launches each shading kernel once a
+    bounce, and its loss and gradients are within sponza_lbvh.train's
+    limits of ``correct`` of the torch body's (STEP_GAPS; relative, the
+    gradients by L2 norm, as benchmark/harness/check.py reads them)."""
+    verts, cd = params.scene.mesh.vertices, params.scene.materials.cd
+    entries = (bs.ENTRY_HIT, bs.ENTRY_CLOSE)
+    trav.reset_launch_counts()
+    loss, (gv, gc) = step.loss_and_grads(verts, cd, 6, params, cam, x, y,
+                                         nee=True)
+    torch.cuda.synchronize()
+    launches = {e: trav.ENTRY_LAUNCHES[e] for e in entries}
+    was = srender.KERNELS["pathtracing"]
+    srender.KERNELS["pathtracing"] = pt._torch_body
+    try:
+        trav.reset_launch_counts()
+        body, (bv, bc) = step.loss_and_grads(verts, cd, 6, params, cam, x,
+                                             y, nee=True)
+        torch.cuda.synchronize()
+        body_launches = {e: trav.ENTRY_LAUNCHES[e] for e in entries}
+    finally:
+        srender.KERNELS["pathtracing"] = was
+
+    def rel(a, b):
+        a, b = a.double(), b.double()
+        return float((a - b).norm() / b.norm())
+
+    gaps = {"loss_gap": abs(float(loss) - float(body)) / abs(float(body)),
+            "gv_gap": rel(gv, bv), "gcd_gap": rel(gc, bc)}
+    same = bool(torch.equal(loss, body))
+    ok = (all(c == BOUNCES for c in launches.values())
+          and not any(body_launches.values())
+          and all(gaps[k] <= lim for k, lim in STEP_GAPS.items()))
+    log(f"lbvh training step, fused against the torch body "
+        f"{WIDTH}x{HEIGHT} nee: loss {float(loss):.9g} / {float(body):.9g} "
+        f"(bit-equal={same}) "
+        + " ".join(f"{k}={v:.3e} (limit {STEP_GAPS[k]})"
+                   for k, v in gaps.items())
+        + f" shading launches {launches} (want {BOUNCES} each), through "
+        f"the torch body {body_launches} {'OK' if ok else 'FAIL'}")
+    return ok, dict(gaps, loss_bit_equal=same, shading_launches=launches)
 
 
 def bounce_phase(params, cam, x, y, entries):

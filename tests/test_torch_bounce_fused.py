@@ -164,7 +164,7 @@ def _no_filter(pid, t, u, v, hit):
 
 
 KEPT = {
-    "grad": (lambda s: s, {}),
+    "grad": (_treelets, {}),
     "textures": (_textured, {}),
     "sphere": (_sphere, {}),
     "treelets": (_treelets, {}),
@@ -177,9 +177,11 @@ KEPT = {
 
 @pytest.mark.parametrize("case", list(KEPT))
 def test_excluded_inputs_take_the_torch_body(case):
-    """Autograd on, textures, a sphere, a treelet ClusterBVH, spectral
-    colour (nc != 3), a hit filter, area lights, no tree: the torch body
-    runs, and no kernel (nor its plain version) is called."""
+    """Textures, a sphere, a treelet ClusterBVH (with autograd off, and on
+    in case ``grad``), spectral colour (nc != 3), a hit filter, area
+    lights, no tree: the torch body runs, and no kernel (nor its plain
+    version) is called.  Autograd alone keeps the fused path
+    (tests/test_torch_step_fused.py)."""
     make, kw = KEPT[case]
     scene, cam = _box()
     params = _params(make(scene), **kw)

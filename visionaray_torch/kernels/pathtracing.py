@@ -16,28 +16,33 @@ channel-count agnostic, so the kernel reads the channel count nc from
 ``materials.cd``, lifts the ambient with ``from_rgb`` and folds the result
 back through ``to_rgb`` before the alpha channel is added.
 
-With autograd on, each bounce runs under a non-reentrant checkpoint: the
-backward keeps only the bounce's carry and its traversal outputs (a
-``TraceTape`` per bounce) and recomputes the rest of the body -- gathers,
-shading, light sampling -- replaying the recorded traversals, so no kernel
-launches in backward (JAX: jax.checkpoint with
+With autograd on, each bounce of the torch body runs under a
+non-reentrant checkpoint: the backward keeps only the bounce's carry and
+its traversal outputs (a ``TraceTape`` per bounce) and recomputes the rest
+of the body -- gathers, shading, light sampling -- replaying the recorded
+traversals, so no kernel launches in backward (JAX: jax.checkpoint with
 save_only_these_names("traced_hits")).
 
-``pathtracing_kernel`` picks one of two paths by what it is given.  With
-autograd off, on a triangle scene with a flat LBVH-tier tree, no
-textures, RGB colour, no hit filter and point lights only (``_fused_ok``),
-a bounce is the closest walk, the hit kernel, the shadow walk and the
-close kernel (``_fused_body``, ops/bounce_shade.py: the torch body's
-operations between the walks in two hand-written CUDA kernels; their plain
-versions on the CPU).  Every other input takes the torch body,
-``pathtrace_loop``, which autograd, its recompute and the ring tracer of
-parallel/sharded_pt.py need.
+``pathtracing_kernel`` picks one of two paths by what it is given.  On a
+triangle scene with a flat LBVH-tier tree, no textures, RGB colour, no hit
+filter and point lights only (``_fused_ok``), a bounce is the closest
+walk, the hit kernel, the shadow walk and the close kernel
+(``_fused_bounce``, ops/bounce_shade.py: the torch body's operations
+between the walks in two hand-written CUDA kernels; their plain versions
+on the CPU).  With autograd on, each such bounce is one autograd node
+(``_FusedBounce``): its forward is those launches, recording the walks on
+a ``TraceTape``; its backward is the checkpoint's recompute, the torch
+body's bounce replaying them, so the gradients are the torch body's.
+Every other input takes the torch body, ``pathtrace_loop``, which the
+ring tracer of parallel/sharded_pt.py needs too.
 """
 
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import math
+from typing import NamedTuple
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -157,30 +162,13 @@ def _checkpointed(body):
     return run
 
 
-def pathtrace_loop(ray: Ray, sampler: Sampler, *, num_bounces: int,
-                   tracer, tracer0=None, lights, nc: int, amb3, bg_color,
-                   eps, nee: bool,
-                   reversed_shadow: bool = True,
-                   recompute: bool = True) -> ResultRecord:
-    """The bounce loop, generic over the tracer; ``tracer0`` (if given)
-    handles bounce 0 only.  ``recompute``: under autograd, each bounce is
-    checkpointed and recomputed in backward (replaying its traversals);
-    the ring tracer of parallel/sharded_pt.py turns it off, since its
-    traces are collective and must not run again in one rank's backward.
-
-    Spans (utils/metrics.py), tagged ``bounce=b``, tile each bounce in
-    order: ``bounce.closest`` (the closest walk with the hit record and
-    surface gathers), ``bounce.shade`` (the hit's bookkeeping, samples and
-    the material sample), ``bounce.nee`` (the light sample and shadow
-    walk), ``bounce.shade`` again (weights, carry updates, the next ray);
-    without NEE, closest and the two shade spans back to back.  Counters: ``bounce.lanes[b]``
-    (lanes handed to the closest walk), ``bounce.live[b]`` (those with
-    ``active``, the walk's max_t > 0), ``bounce.shadow[b]`` (lanes firing
-    a shadow ray)."""
-    batch = ray.batch_shape
-    dev = ray.dir.device
-    amb3 = torch.as_tensor(amb3, dtype=torch.float32, device=dev)
-
+def _bounce_body(*, lights, nc: int, amb3, eps, nee: bool,
+                 reversed_shadow: bool):
+    """``pathtrace_loop``'s bounce, the torch body: ``bounce_body(tr,
+    bounce, ray, sampler, active, dst, acc, first_hit, first_t,
+    prev_delta)`` -> the carry after bounce ``bounce``, through the
+    tracers ``tr`` = (closest, any); ``amb3`` a tensor on the rays'
+    device."""
     def bounce_body(tr, bounce, ray, sampler, active, dst, acc, first_hit,
                     first_t, prev_delta):
         trace_closest, trace_any = tr
@@ -255,6 +243,36 @@ def pathtrace_loop(ray: Ray, sampler: Sampler, *, num_bounces: int,
         return (ray, sampler, active, dst, acc, first_hit, first_t,
                 prev_delta)
 
+    return bounce_body
+
+
+def pathtrace_loop(ray: Ray, sampler: Sampler, *, num_bounces: int,
+                   tracer, tracer0=None, lights, nc: int, amb3, bg_color,
+                   eps, nee: bool,
+                   reversed_shadow: bool = True,
+                   recompute: bool = True) -> ResultRecord:
+    """The bounce loop, generic over the tracer; ``tracer0`` (if given)
+    handles bounce 0 only.  ``recompute``: under autograd, each bounce is
+    checkpointed and recomputed in backward (replaying its traversals);
+    the ring tracer of parallel/sharded_pt.py turns it off, since its
+    traces are collective and must not run again in one rank's backward.
+
+    Spans (utils/metrics.py), tagged ``bounce=b``, tile each bounce in
+    order: ``bounce.closest`` (the closest walk with the hit record and
+    surface gathers), ``bounce.shade`` (the hit's bookkeeping, samples and
+    the material sample), ``bounce.nee`` (the light sample and shadow
+    walk), ``bounce.shade`` again (weights, carry updates, the next ray);
+    without NEE, closest and the two shade spans back to back.  Counters: ``bounce.lanes[b]``
+    (lanes handed to the closest walk), ``bounce.live[b]`` (those with
+    ``active``, the walk's max_t > 0), ``bounce.shadow[b]`` (lanes firing
+    a shadow ray)."""
+    batch = ray.batch_shape
+    dev = ray.dir.device
+    bounce_body = _bounce_body(
+        lights=lights, nc=nc,
+        amb3=torch.as_tensor(amb3, dtype=torch.float32, device=dev),
+        eps=eps, nee=nee, reversed_shadow=reversed_shadow)
+
     step = _checkpointed(bounce_body) \
         if recompute and torch.is_grad_enabled() else bounce_body
     carry = (ray, sampler,
@@ -283,13 +301,14 @@ def pathtrace_loop(ray: Ray, sampler: Sampler, *, num_bounces: int,
 
 def _fused_ok(params: KernelParams) -> bool:
     """Whether ``pathtracing_kernel`` can run the bounce as two hand kernels
-    around the LBVH walks (``_fused_body``): autograd is off, the scene is
-    triangles alone on a flat ``ops.lbvh.BVH`` (LBVH, SAH or SBVH: what
-    ``bvh_traverse`` walks), with no textures, RGB colour, no hit filter
-    and point lights only.  Anything else takes the torch body."""
+    around the LBVH walks (``_fused_body``): the scene is triangles alone
+    on a flat ``ops.lbvh.BVH`` (LBVH, SAH or SBVH: what ``bvh_traverse``
+    walks), with no textures, RGB colour, no hit filter and point lights
+    only.  With autograd off or on: on, each bounce is one ``_FusedBounce``
+    node, whose backward recomputes the torch body.  Anything else takes
+    the torch body."""
     scene = params.scene
-    return (not torch.is_grad_enabled()
-            and isinstance(scene.bvh, BVH) and scene.mesh is not None
+    return (isinstance(scene.bvh, BVH) and scene.mesh is not None
             and scene.spheres is None and scene.planes is None
             and scene.textures is None and params.hit_filter is None
             and scene.materials.cd.shape[-1] == 3
@@ -297,63 +316,261 @@ def _fused_ok(params: KernelParams) -> bool:
                     for g in light_groups(scene.lights)))
 
 
+def _grad_leaves(obj, path=()):
+    """``(path, tensor)`` of every tensor that requires grad in ``obj``'s
+    dataclass fields, tuples and lists, depth first; ``path`` is the field
+    names and indices that lead to it."""
+    if isinstance(obj, torch.Tensor):
+        return [(path, obj)] if obj.requires_grad else []
+    if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
+        items = [(f.name, getattr(obj, f.name))
+                 for f in dataclasses.fields(obj)]
+    elif isinstance(obj, (tuple, list)):
+        items = list(enumerate(obj))
+    else:
+        return []
+    return [leaf for k, v in items for leaf in _grad_leaves(v, path + (k,))]
+
+
+def _with_leaf(obj, path, value):
+    """``obj`` with ``value`` at ``path`` (from ``_grad_leaves``), every
+    object on the way copied, the rest shared."""
+    if not path:
+        return value
+    k, rest = path[0], path[1:]
+    if isinstance(obj, (tuple, list)):
+        seq = list(obj)
+        seq[k] = _with_leaf(obj[k], rest, value)
+        return type(obj)(seq)
+    return dataclasses.replace(
+        obj, **{k: _with_leaf(getattr(obj, k), rest, value)})
+
+
+@dataclasses.dataclass
+class _Frame:
+    """What every fused bounce of one call reads: the parameters, the
+    kernels' scene tables and NEE; under autograd, where the parameters'
+    tensors that require grad sit (``_grad_leaves``)."""
+
+    params: KernelParams
+    sh: bounce_shade.Shading
+    tables: tuple
+    nee: bool
+    paths: tuple = ()
+
+
+class _Carry(NamedTuple):
+    """``pathtrace_loop``'s carry on flat lanes, as ``_fused_bounce`` takes
+    and returns it; ``first_hit`` and ``first_t`` come out of bounce 0
+    alone."""
+
+    o: torch.Tensor
+    d: torch.Tensor
+    max_t: torch.Tensor
+    state: torch.Tensor
+    active: torch.Tensor
+    dst: torch.Tensor
+    acc: torch.Tensor
+    prev_delta: torch.Tensor
+    first_hit: torch.Tensor | None = None
+    first_t: torch.Tensor | None = None
+
+
+def _fused_bounce(fr: _Frame, bounce: int, c: _Carry, tape=None) -> _Carry:
+    """One bounce as the closest walk, ``ops/bounce_shade.py::shade_hit``,
+    the shadow walk and ``shade_close`` (no shadow walk without NEE or
+    lights), on flat lanes: the carry after it.  Spans and counters as
+    ``pathtrace_loop``'s: ``bounce.closest`` holds the closest walk,
+    ``bounce.shade`` the hit kernel, ``bounce.nee`` the shadow walk,
+    ``bounce.shade`` the close kernel; ``bounce.shadow`` counts the hit
+    kernel's ``fire``.  ``tape``: a ``TraceTape`` that gets each walk's
+    ``(best_t, best_ref)`` in the order, and with the shapes, in which the
+    torch body's front ends on these lanes record them
+    (ops/traversal.py::_search)."""
+    bvh = fr.params.scene.bvh
+    o, d, dst, acc = c.o, c.d, c.dst, c.acc
+    metrics.count("bounce.lanes", o.shape[0], bounce)
+    metrics.count("bounce.live", c.active, bounce)
+    with metrics.span("bounce.closest", bounce=bounce):
+        walks = [traversal.bvh_traverse(o, d, c.max_t, bvh, "triangle",
+                                        fr.tables, "closest")]
+    with metrics.span("bounce.shade", bounce=bounce):
+        hit = bounce_shade.shade_hit(fr.sh, o, d, walks[0][1], c.state,
+                                     c.active, dst, acc, bounce)
+    shadow_ref = None
+    if fr.nee:
+        acc = hit.carry
+        with metrics.span("bounce.nee", bounce=bounce):
+            if hit.fire is not None:
+                metrics.count("bounce.shadow", hit.fire, bounce)
+                walks.append(traversal.bvh_traverse(
+                    hit.shadow_o, hit.shadow_d, hit.shadow_t, bvh,
+                    "triangle", fr.tables, "any"))
+                shadow_ref = walks[1][1]
+    else:
+        dst = hit.carry
+    with metrics.span("bounce.shade", bounce=bounce):
+        nxt = bounce_shade.shade_close(fr.sh, d, hit, shadow_ref, dst, acc,
+                                       c.prev_delta, bounce)
+    if tape is not None:
+        tape.outs.extend(tuple(w) for w in walks)
+    first = (hit.first_hit, hit.first_t) if bounce == 0 else (None, None)
+    return _Carry(nxt.o, nxt.d, nxt.max_t, hit.state, nxt.active, nxt.dst,
+                  nxt.acc, nxt.prev_delta, *first)
+
+
+def _ray_grads(params: KernelParams, o_rg: bool, d_rg: bool):
+    """Whether the torch body's bounce makes its next ray's origin, its
+    next direction and its first t require grad, given whether the
+    bounce's ray origin (``o_rg``) and direction (``d_rg``) do and what of
+    ``params`` does.  The hit's t follows the ray and the vertices; the
+    next direction, the sampled lobe's, the view direction, the shading
+    normal (with corner normals, interpolated at the hit) and the Blinn
+    exponent; the next origin, the hit point pushed along it by epsilon,
+    both.  ``_FusedBounce`` marks its outputs by it, so that the backward
+    differentiates what the torch body's does, and checks it against each
+    recompute."""
+    mesh = params.scene.mesh
+    hit = o_rg or d_rg or mesh.vertices.requires_grad
+    normal = mesh.normals.requires_grad if mesh.face_normals_binding \
+        else hit or mesh.corner_normals.requires_grad
+    d_next = d_rg or normal or \
+        params.scene.materials.specular_exp.requires_grad
+    eps = params.epsilon
+    o_next = hit or d_next or (isinstance(eps, torch.Tensor)
+                               and eps.requires_grad)
+    return o_next, d_next, hit
+
+
+# _FusedBounce.forward(ctx, fr, bounce, *carry, *leaves): the fields of the
+# carry a bounce takes, each one's argument index, and the first leaf's
+_IN = _Carry._fields[:8]
+_ARG = {f: 2 + i for i, f in enumerate(_IN)}
+_LEAF0 = 2 + len(_IN)
+# what the backward keeps of the input carry; the fields autograd
+# differentiates in and, where ``_ray_grads`` says so for the ray's, out
+_SAVED = ("o", "d", "state", "active", "dst", "acc", "prev_delta")
+_DIFF_IN = ("o", "d", "dst", "acc")
+_RAY_OUT = ("o", "d", "first_t")
+
+
+class _FusedBounce(torch.autograd.Function):
+    """A fused bounce under autograd, one node.  Forward: ``_fused_bounce``
+    (four launches), its walks recorded on a ``TraceTape``; it saves the
+    bounce's input carry, the parameters' tensors that require grad and
+    the tape, as ``pathtrace_loop``'s checkpoint keeps, and marks the
+    outputs that the torch body would leave constant (``_ray_grads``).
+    Backward: the torch body's bounce (``_bounce_body``) recomputed on
+    detached copies of them with the walks replayed (``_recompute``: no
+    walk launches, spans carry ``recompute=True``), and
+    ``torch.autograd.grad`` through it."""
+
+    @staticmethod
+    def forward(ctx, fr, bounce, *args):
+        c, leaves = _Carry(*args[:len(_IN)]), args[len(_IN):]
+        tape = traverse.TraceTape()
+        out = _fused_bounce(fr, bounce, c, tape)
+        need = ctx.needs_input_grad
+        ctx.fr, ctx.bounce, ctx.tape = fr, bounce, tape
+        ctx.marks = dict(zip(_RAY_OUT, _ray_grads(
+            fr.params, need[_ARG["o"]], need[_ARG["d"]])))
+        ctx.save_for_backward(*(getattr(c, f) for f in _SAVED), *leaves)
+        const = ("max_t", "state", "active", "prev_delta", "first_hit") \
+            + tuple(f for f, m in ctx.marks.items() if not m)
+        ctx.mark_non_differentiable(*(getattr(out, f) for f in const
+                                      if getattr(out, f) is not None))
+        ctx.set_materialize_grads(False)
+        return tuple(out)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        fr, bounce = ctx.fr, ctx.bounce
+        saved = ctx.saved_tensors
+        c = dict(zip(_SAVED, saved))
+        need = ctx.needs_input_grad
+        given = {**{_ARG[f]: c[f] for f in _DIFF_IN},
+                 **{_LEAF0 + i: t for i, t in enumerate(saved[len(_SAVED):])}}
+        with torch.enable_grad():
+            x = {i: t.detach().requires_grad_(need[i])
+                 for i, t in given.items()}
+            params = fr.params
+            for i, path in enumerate(fr.paths):
+                params = _with_leaf(params, path, x[_LEAF0 + i])
+            body = _bounce_body(
+                lights=params.scene.lights, nc=3,
+                amb3=torch.as_tensor(params.ambient_color[:3],
+                                     dtype=torch.float32,
+                                     device=c["o"].device),
+                eps=params.epsilon, nee=fr.nee,
+                reversed_shadow=params.trace.shadow_reversed)
+            tape, ctx.tape = ctx.tape, None
+            with _recompute(tape):
+                ray, _, _, dst, acc, _, first_t, _ = body(
+                    scene_tracer(params, binned=False), bounce,
+                    Ray(ori=x[_ARG["o"]], dir=x[_ARG["d"]]),
+                    Sampler(c["state"]), c["active"], x[_ARG["dst"]],
+                    x[_ARG["acc"]], None, None, c["prev_delta"])
+        ys = {"o": ray.ori, "d": ray.dir, "dst": dst, "acc": acc,
+              "first_t": first_t}
+        if any(ys[f] is not None and ys[f].requires_grad
+               for f, m in ctx.marks.items() if not m):
+            raise RuntimeError(
+                "_FusedBounce: the torch body differentiates an output the "
+                "fused bounce marked constant; _ray_grads must follow "
+                "_bounce_body")
+        g = _Carry(*grads)
+        pairs = [(ys[f], getattr(g, f)) for f in ys
+                 if getattr(g, f) is not None and ys[f].requires_grad]
+        # what no gradient reaches goes before the backward's graph is
+        # walked, as a checkpoint's recompute keeps only what is needed
+        del ray, dst, acc, first_t, ys
+        wrt = [i for i in given if need[i]]
+        got = torch.autograd.grad(
+            [y for y, _ in pairs], [x[i] for i in wrt],
+            [g for _, g in pairs], allow_unused=True) \
+            if pairs else [None] * len(wrt)
+        out = [None] * len(need)
+        for i, gi in zip(wrt, got):
+            out[i] = gi
+        return tuple(out)
+
+
 def _fused_body(params: KernelParams, ray: Ray, sampler: Sampler,
                 nee: bool) -> ResultRecord:
-    """The bounce loop as four launches a bounce (three without NEE): the
-    closest walk, ``ops/bounce_shade.py::shade_hit``, the shadow walk and
-    ``shade_close``, on flat lanes; the carry means what
-    ``pathtrace_loop``'s does, and the result is its result.  Spans and
-    counters as ``pathtrace_loop``'s: ``bounce.closest`` holds the closest
-    walk, ``bounce.shade`` the hit kernel, ``bounce.nee`` the shadow walk,
-    ``bounce.shade`` the close kernel; ``bounce.shadow`` counts the hit
-    kernel's ``fire``."""
+    """The bounce loop as ``_fused_bounce`` a bounce, on flat lanes; its
+    result is ``pathtrace_loop``'s.  Under autograd each bounce is one
+    ``_FusedBounce`` node with every tensor of ``params`` that requires
+    grad as an input, so gradients reach them as through the torch
+    body."""
     scene = params.scene
     batch = ray.batch_shape
     dev = ray.dir.device
     o = ray.ori.reshape(-1, 3).to(torch.float32).contiguous()
-    d = ray.dir.reshape(-1, 3).to(torch.float32).contiguous()
     n = o.shape[0]
-    state = sampler.state.reshape(-1).contiguous()
-    tables = traversal.prim_tables("triangle", scene.mesh)
-    sh = bounce_shade.Shading.of(params, nee)
-    active = torch.ones((n,), dtype=torch.bool, device=dev)
-    dst = torch.ones((n, 3), dtype=torch.float32, device=dev)
-    acc = torch.zeros((n, 3), dtype=torch.float32, device=dev)
+    grad = torch.is_grad_enabled()
+    found = _grad_leaves(params) if grad else []
+    leaves = [t for _, t in found]
+    with torch.no_grad():
+        fr = _Frame(params=params, sh=bounce_shade.Shading.of(params, nee),
+                    tables=traversal.prim_tables("triangle", scene.mesh),
+                    nee=nee, paths=tuple(p for p, _ in found))
+    c = _Carry(
+        o=o, d=ray.dir.reshape(-1, 3).to(torch.float32).contiguous(),
+        max_t=torch.full((n,), FLT_MAX, dtype=torch.float32, device=dev),
+        state=sampler.state.reshape(-1).contiguous(),
+        active=torch.ones((n,), dtype=torch.bool, device=dev),
+        dst=torch.ones((n, 3), dtype=torch.float32, device=dev),
+        acc=torch.zeros((n, 3), dtype=torch.float32, device=dev),
+        prev_delta=torch.zeros((n,), dtype=torch.bool, device=dev))
     first_hit = torch.zeros((n,), dtype=torch.bool, device=dev)
     first_t = torch.zeros((n,), dtype=torch.float32, device=dev)
-    prev_delta = torch.zeros((n,), dtype=torch.bool, device=dev)
-    max_t = torch.full((n,), FLT_MAX, dtype=torch.float32, device=dev)
     for bounce in range(params.num_bounces):
-        metrics.count("bounce.lanes", n, bounce)
-        metrics.count("bounce.live", active, bounce)
-        with metrics.span("bounce.closest", bounce=bounce):
-            _, ref = traversal.bvh_traverse(o, d, max_t, scene.bvh,
-                                            "triangle", tables, "closest")
-        with metrics.span("bounce.shade", bounce=bounce):
-            hit = bounce_shade.shade_hit(sh, o, d, ref, state, active, dst,
-                                         acc, bounce)
-        shadow_ref = None
-        if nee:
-            acc = hit.carry
-            with metrics.span("bounce.nee", bounce=bounce):
-                if hit.fire is not None:
-                    metrics.count("bounce.shadow", hit.fire, bounce)
-                    _, shadow_ref = traversal.bvh_traverse(
-                        hit.shadow_o, hit.shadow_d, hit.shadow_t, scene.bvh,
-                        "triangle", tables, "any")
-        else:
-            dst = hit.carry
-        with metrics.span("bounce.shade", bounce=bounce):
-            nxt = bounce_shade.shade_close(sh, d, hit, shadow_ref, dst, acc,
-                                           prev_delta, bounce)
+        c = _Carry(*_FusedBounce.apply(fr, bounce, *c[:len(_IN)], *leaves)) \
+            if grad else _fused_bounce(fr, bounce, c)
         if bounce == 0:
-            first_hit, first_t = hit.first_hit, hit.first_t
-        state = hit.state
-        o, d, max_t = nxt.o, nxt.d, nxt.max_t
-        dst, acc, active, prev_delta = (nxt.dst, nxt.acc, nxt.active,
-                                        nxt.prev_delta)
+            first_hit, first_t = c.first_hit, c.first_t
 
-    out = acc if nee else torch.where(active[..., None], 0.0, dst)
+    out = c.acc if nee else torch.where(c.active[..., None], 0.0, c.dst)
     rgba = torch.cat([out, torch.ones_like(out[..., :1])], dim=-1)
     color = torch.where(first_hit[..., None], rgba,
                         torch.as_tensor(params.bg_color, dtype=torch.float32,
@@ -390,7 +607,8 @@ def _torch_body(params: KernelParams, ray: Ray, sampler: Sampler,
 def pathtracing_kernel(params: KernelParams, ray: Ray, sampler: Sampler,
                        nee: bool = False) -> ResultRecord:
     """Path-traced colour, first hit and depth of ``ray``: through
-    ``_fused_body`` where ``_fused_ok`` holds, else the torch body."""
+    ``_fused_body`` where ``_fused_ok`` holds, with autograd off or on,
+    else the torch body."""
     if _fused_ok(params):
         return _fused_body(params, ray, sampler, nee)
     return _torch_body(params, ray, sampler, nee)
