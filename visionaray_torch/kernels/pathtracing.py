@@ -28,11 +28,12 @@ triangle scene with a flat LBVH-tier tree, no textures, RGB colour, no hit
 filter and point lights only (``_fused_ok``), a bounce is the closest
 walk, the hit kernel, the shadow walk and the close kernel
 (``_fused_bounce``, ops/bounce_shade.py: the torch body's operations
-between the walks in two hand-written CUDA kernels; their plain versions
-on the CPU).  With autograd on, each such bounce is one autograd node
-(``_FusedBounce``): its forward is those launches, recording the walks on
-a ``TraceTape``; its backward is the checkpoint's recompute, the torch
-body's bounce replaying them, so the gradients are the torch body's.
+between the walks, shading/bounce.py, in two hand-written CUDA kernels;
+on the CPU, those operations themselves).  With autograd on, each such
+bounce is one autograd node (``_FusedBounce``): its forward is those
+launches, recording the walks on a ``TraceTape``; its backward is the
+checkpoint's recompute, the torch body's bounce replaying them, so the
+gradients are the torch body's.
 Every other input takes the torch body, ``pathtrace_loop``, which the
 ring tracer of parallel/sharded_pt.py needs too.
 """
@@ -41,86 +42,22 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
-import math
 from typing import NamedTuple
 
 import torch
 from torch.utils.checkpoint import checkpoint
 
 from visionaray_torch.core.types import FLT_MAX, Ray, ResultRecord
-from visionaray_torch.core.vecmath import faceforward, length
 from visionaray_torch.kernels.params import KernelParams
 from visionaray_torch.ops import bounce_shade, traversal, traverse
 from visionaray_torch.ops.lbvh import BVH
 from visionaray_torch.ops.sampling import Sampler
 from visionaray_torch.ops.trace import any_hit, closest_hit
-from visionaray_torch.shading.lights import (
-    AreaLights, PointLights, light_groups,
-)
+from visionaray_torch.shading import bounce as shade
+from visionaray_torch.shading.lights import PointLights, light_groups
 from visionaray_torch.shading.spectrum import from_rgb, to_rgb
 from visionaray_torch.shading.surface import get_surface
 from visionaray_torch.utils import metrics
-
-
-def _nee_direct(lights, nc, surf, n, view_dir, isect_pos, eps, ua, ub, ul,
-                trace_any, mask=None, reversed_shadow: bool = True,
-                bounce=None):
-    """One-sample next-event estimate of the direct term at isect_pos:
-    uniform light pick, area lights sampled over their surface with the
-    cos_l * A / (pi r^2) factor.  Lanes outside ``mask``, facing away from
-    the light or behind an area light fire no shadow ray (max_t = -1).
-    ``reversed_shadow``: the shadow segment is traced from the light end,
-    else from the surface.  The lanes that fire count in
-    ``bounce.shadow[bounce]`` (utils/metrics.py)."""
-    groups = light_groups(lights)
-    total = sum(g.num_lights for g in groups)
-    batch = tuple(isect_pos.shape[:-1])
-    dev = isect_pos.device
-    if total == 0:
-        return torch.zeros(batch + (nc,), dtype=torch.float32, device=dev)
-
-    sel_idx = torch.clamp_max((ul * total).to(torch.int32), total - 1)
-    P = torch.zeros(batch + (3,), dtype=torch.float32, device=dev)
-    I = torch.zeros(batch + (nc,), dtype=torch.float32, device=dev)
-    g = torch.ones(batch, dtype=torch.float32, device=dev)
-    idx = 0
-    for lgroup in groups:
-        for li in range(lgroup.num_lights):
-            sel = sel_idx == idx
-            if isinstance(lgroup, AreaLights):
-                P_l = lgroup.sample(li, ua, ub)
-                to = P_l - isect_pos
-                r2 = torch.clamp_min(torch.sum(to * to, dim=-1), 1e-12)
-                wi_l = to / torch.sqrt(r2)[..., None]
-                nl = lgroup.normal(li)
-                cos_l = torch.clamp_min(-torch.sum(nl * wi_l, dim=-1), 0.0)
-                g_l = cos_l * lgroup.area(li) / (math.pi * r2)
-            else:
-                P_l = lgroup.position[li].expand(batch + (3,))
-                g_l = torch.ones(batch, dtype=torch.float32, device=dev)
-            I_l = lgroup.intensity(li, isect_pos)
-            P = torch.where(sel[..., None], P_l, P)
-            I = torch.where(sel[..., None], I_l, I)
-            g = torch.where(sel, g_l, g)
-            idx += 1
-
-    to_light = P - isect_pos
-    dist = length(to_light)
-    wi = to_light / torch.clamp_min(dist, 1e-12)[..., None]
-    fire = (torch.sum(n * wi, dim=-1) > 0.0) & (g > 0.0)
-    if mask is not None:
-        fire = fire & mask
-    metrics.count("bounce.shadow", fire, bounce)
-    mt = torch.where(fire, dist - 2.0 * eps, -1.0)
-    if reversed_shadow:
-        # from the light end: shadow rays of one light share (nearly) one
-        # origin, so the batch is point-source coherent
-        shadow = trace_any(Ray(ori=P - wi * eps, dir=-wi), mt)
-    else:
-        shadow = trace_any(Ray(ori=isect_pos + wi * eps, dir=wi), mt)
-    visible = fire & ~shadow.hit
-    direct = surf.materials.shade(n, view_dir, wi, I)
-    return direct * (g * visible * float(total))[..., None]
 
 
 def scene_tracer(params: KernelParams, binned: bool):
@@ -162,13 +99,13 @@ def _checkpointed(body):
     return run
 
 
-def _bounce_body(*, lights, nc: int, amb3, eps, nee: bool,
-                 reversed_shadow: bool):
+def _bounce_body(*, lights, amb3, eps, nee: bool, reversed_shadow: bool):
     """``pathtrace_loop``'s bounce, the torch body: ``bounce_body(tr,
     bounce, ray, sampler, active, dst, acc, first_hit, first_t,
     prev_delta)`` -> the carry after bounce ``bounce``, through the
-    tracers ``tr`` = (closest, any); ``amb3`` a tensor on the rays'
-    device."""
+    tracers ``tr`` = (closest, any): the closest walk, the shading
+    between the walks (shading/bounce.py) and the shadow walk; ``amb3`` a
+    tensor on the rays' device."""
     def bounce_body(tr, bounce, ray, sampler, active, dst, acc, first_hit,
                     first_t, prev_delta):
         trace_closest, trace_any = tr
@@ -179,80 +116,39 @@ def _bounce_body(*, lights, nc: int, amb3, eps, nee: bool,
                                                            -1.0))
 
         with metrics.span("bounce.shade", bounce=bounce):
-            exited = active & ~hit_rec.hit
-            if nee:
-                acc = torch.where(exited[..., None], acc + dst * amb3, acc)
-            else:
-                dst = torch.where(exited[..., None], dst * amb3, dst)
-            active = active & hit_rec.hit
+            h, dst, acc = shade.at_hit(hit_rec, surf, ray, sampler, active,
+                                       dst, acc, amb=amb3, nee=nee)
+            if bounce == 0:
+                first_hit, first_t = hit_rec.hit, hit_rec.t
 
-            is_first = bounce == 0
-            if is_first:
-                first_hit = hit_rec.hit
-                first_t = hit_rec.t
-
-            view_dir = -ray.dir
-            n = faceforward(surf.shading_normal, view_dir,
-                            surf.geometric_normal)
-
-            if nee:
-                (u_lobe, u1, u2, ul, ua, ub), sampler = sampler.next_n(6)
-            else:
-                (u_lobe, u1, u2), sampler = sampler.next_n(3)
-            src, refl_dir, pdf = surf.materials.sample(n, view_dir, u_lobe,
-                                                       u1, u2)
-            zero_pdf = pdf <= 0.0
-            emissive = surf.materials.is_emissive()
-
-            if nee:
-                isect_pos0 = ray.at(torch.where(hit_rec.hit, hit_rec.t, 1.0))
-                # mirror lanes: shade() is 0, so their shadow ray is dropped
-                take_d = active & ~emissive & ~surf.materials.is_specular()
-
+        direct = None
         if nee:
             with metrics.span("bounce.nee", bounce=bounce):
-                direct = _nee_direct(lights, nc, surf, n, view_dir,
-                                     isect_pos0, eps, ua, ub, ul, trace_any,
-                                     mask=take_d,
-                                     reversed_shadow=reversed_shadow,
-                                     bounce=bounce)
+                h, shadow, mt = shade.light_sample(
+                    lights, h, eps, reversed_shadow=reversed_shadow)
+                occluded = None
+                if shadow is not None:
+                    metrics.count("bounce.shadow", h.fire, bounce)
+                    occluded = trace_any(shadow, mt).hit
+                direct = shade.direct_light(h, occluded)
 
         with metrics.span("bounce.shade", bounce=bounce):
-            if nee:
-                acc = torch.where(take_d[..., None], acc + dst * direct, acc)
-                # emission counts on the camera ray and after a delta bounce
-                take_e = active & emissive & (is_first | prev_delta)
-                acc = torch.where(take_e[..., None], acc + dst * src, acc)
-
-            safe_pdf = torch.where(zero_pdf, 1.0, pdf)
-            ndotwi = torch.sum(n * refl_dir, dim=-1)
-            weight = torch.where(emissive, 1.0, ndotwi / safe_pdf)
-            src = src * weight[..., None]
-
-            upd = active & ~zero_pdf
-            if nee:
-                upd = upd & ~emissive
-            dst = torch.where(upd[..., None], dst * src, dst)
-            dst = torch.where((zero_pdf & active)[..., None], 0.0, dst)
-
-            active = active & ~emissive & ~zero_pdf
-
-            isect_pos = ray.at(torch.where(hit_rec.hit, hit_rec.t, 1.0))
-            ray = Ray(ori=isect_pos + refl_dir * eps, dir=refl_dir)
-            prev_delta = active & surf.materials.is_specular()
-        return (ray, sampler, active, dst, acc, first_hit, first_t,
+            ray, active, dst, acc, prev_delta = shade.next_ray(
+                h, direct, dst, acc, prev_delta, eps=eps, nee=nee,
+                first=bounce == 0)
+        return (ray, h.sampler, active, dst, acc, first_hit, first_t,
                 prev_delta)
 
     return bounce_body
 
 
 def pathtrace_loop(ray: Ray, sampler: Sampler, *, num_bounces: int,
-                   tracer, tracer0=None, lights, nc: int, amb3, bg_color,
-                   eps, nee: bool,
-                   reversed_shadow: bool = True,
+                   tracer, tracer0=None, lights, amb3, bg_color, eps,
+                   nee: bool, reversed_shadow: bool = True,
                    recompute: bool = True) -> ResultRecord:
     """The bounce loop, generic over the tracer; ``tracer0`` (if given)
-    handles bounce 0 only.  ``recompute``: under autograd, each bounce is
+    handles bounce 0 only.  ``amb3``: the ambient colour in the
+    materials' channels.  ``recompute``: under autograd, each bounce is
     checkpointed and recomputed in backward (replaying its traversals);
     the ring tracer of parallel/sharded_pt.py turns it off, since its
     traces are collective and must not run again in one rank's backward.
@@ -260,18 +156,18 @@ def pathtrace_loop(ray: Ray, sampler: Sampler, *, num_bounces: int,
     Spans (utils/metrics.py), tagged ``bounce=b``, tile each bounce in
     order: ``bounce.closest`` (the closest walk with the hit record and
     surface gathers), ``bounce.shade`` (the hit's bookkeeping, samples and
-    the material sample), ``bounce.nee`` (the light sample and shadow
-    walk), ``bounce.shade`` again (weights, carry updates, the next ray);
-    without NEE, closest and the two shade spans back to back.  Counters: ``bounce.lanes[b]``
-    (lanes handed to the closest walk), ``bounce.live[b]`` (those with
-    ``active``, the walk's max_t > 0), ``bounce.shadow[b]`` (lanes firing
-    a shadow ray)."""
+    the material sample), ``bounce.nee`` (the light pick, the shadow walk
+    and ``shade()``), ``bounce.shade`` again (weights, carry updates, the
+    next ray); without NEE, closest and the two shade spans back to back.
+    Counters: ``bounce.lanes[b]`` (lanes handed to the closest walk),
+    ``bounce.live[b]`` (those with ``active``, the walk's max_t > 0),
+    ``bounce.shadow[b]`` (lanes firing a shadow ray)."""
     batch = ray.batch_shape
     dev = ray.dir.device
-    bounce_body = _bounce_body(
-        lights=lights, nc=nc,
-        amb3=torch.as_tensor(amb3, dtype=torch.float32, device=dev),
-        eps=eps, nee=nee, reversed_shadow=reversed_shadow)
+    amb3 = torch.as_tensor(amb3, dtype=torch.float32, device=dev)
+    nc = amb3.shape[-1]
+    bounce_body = _bounce_body(lights=lights, amb3=amb3, eps=eps, nee=nee,
+                               reversed_shadow=reversed_shadow)
 
     step = _checkpointed(bounce_body) \
         if recompute and torch.is_grad_enabled() else bounce_body
@@ -286,16 +182,22 @@ def pathtrace_loop(ray: Ray, sampler: Sampler, *, num_bounces: int,
         tr = tracer0 if (tracer0 is not None and bounce == 0) else tracer
         carry = step(tr, bounce, *carry)
     _, _, active, dst, acc, first_hit, first_t, _ = carry
+    return _result(nee, bg_color, active, dst, acc, first_hit, first_t)
 
+
+def _result(nee: bool, bg_color, active, dst, acc, first_hit,
+            first_t) -> ResultRecord:
+    """The loop's result from its last carry: the colour with alpha 1
+    where bounce 0 hit, else ``bg_color``; the first hit and its t."""
     # paths still alive at loop end terminate to black
     out = acc if nee else torch.where(active[..., None], 0.0, dst)
-    if nc != 3:
+    if out.shape[-1] != 3:
         # fold the spectrum through the CIE observer for display
         out = to_rgb(out)
     rgba = torch.cat([out, torch.ones_like(out[..., :1])], dim=-1)
     color = torch.where(first_hit[..., None], rgba,
                         torch.as_tensor(bg_color, dtype=torch.float32,
-                                        device=dev))
+                                        device=rgba.device))
     return ResultRecord(color=color, hit=first_hit, depth=first_t)
 
 
@@ -497,7 +399,7 @@ class _FusedBounce(torch.autograd.Function):
             for i, path in enumerate(fr.paths):
                 params = _with_leaf(params, path, x[_LEAF0 + i])
             body = _bounce_body(
-                lights=params.scene.lights, nc=3,
+                lights=params.scene.lights,
                 amb3=torch.as_tensor(params.ambient_color[:3],
                                      dtype=torch.float32,
                                      device=c["o"].device),
@@ -570,14 +472,9 @@ def _fused_body(params: KernelParams, ray: Ray, sampler: Sampler,
         if bounce == 0:
             first_hit, first_t = c.first_hit, c.first_t
 
-    out = c.acc if nee else torch.where(c.active[..., None], 0.0, c.dst)
-    rgba = torch.cat([out, torch.ones_like(out[..., :1])], dim=-1)
-    color = torch.where(first_hit[..., None], rgba,
-                        torch.as_tensor(params.bg_color, dtype=torch.float32,
-                                        device=dev))
-    return ResultRecord(color=color.reshape(batch + (4,)),
-                        hit=first_hit.reshape(batch),
-                        depth=first_t.reshape(batch))
+    return _result(nee, params.bg_color,
+                   *(x.reshape(batch + x.shape[1:]) for x in (
+                       c.active, c.dst, c.acc, first_hit, first_t)))
 
 
 def _torch_body(params: KernelParams, ray: Ray, sampler: Sampler,
@@ -598,9 +495,8 @@ def _torch_body(params: KernelParams, ray: Ray, sampler: Sampler,
         tracer = scene_tracer(params, binned=False)
     return pathtrace_loop(
         ray, sampler, num_bounces=params.num_bounces, tracer=tracer,
-        tracer0=tracer0, lights=scene.lights, nc=nc,
-        amb3=amb3, bg_color=params.bg_color,
-        eps=params.epsilon, nee=nee,
+        tracer0=tracer0, lights=scene.lights, amb3=amb3,
+        bg_color=params.bg_color, eps=params.epsilon, nee=nee,
         reversed_shadow=params.trace.shadow_reversed)
 
 

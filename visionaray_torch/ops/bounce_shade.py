@@ -4,20 +4,20 @@ PyTorch versions.
 
 ``kernels/pathtracing.py::_fused_body`` runs a bounce as four launches:
 the closest walk, ``shade_hit``, the shadow walk and ``shade_close``.
-Between the walks sit the torch body's operations
-(``kernels/pathtracing.py::pathtrace_loop.bounce_body``, ~680 kernels a
-bounce on the card):
+Between the walks sit the torch body's operations (shading/bounce.py,
+~680 kernels a bounce on the card):
 
 - ``shade_hit`` takes the closest walk's ``best_ref`` and does the hit
-  record (``ops/trace.py::_recompute_hits`` and closest_hit's masks),
-  ``get_surface``, the ambient term of the lanes that exit, the first
-  hit, the sampler's draws, ``Materials.sample`` and, with NEE,
-  ``_nee_direct`` up to its shadow walk: the light pick, the shadow ray
-  (flat, as ``ops/traversal.py::bvh_traverse`` takes it) and ``fire``;
+  record (``ops/trace.py::closest_hit``), ``get_surface``, ``at_hit``
+  (the ambient term of the lanes that exit, the sampler's draws,
+  ``Materials.sample``) and, with NEE, ``light_sample``: the light pick,
+  the shadow ray (flat, as ``ops/traversal.py::bvh_traverse`` takes it)
+  and ``fire``; and the first hit;
 - ``shade_close`` takes the shadow walk's ``best_ref`` (visible: fire and
-  ref < 0, the walk's contract) and does ``shade()``, the acc / dst
-  updates, the BRDF weight, ``active``, ``prev_delta`` and the next
-  closest ray (flat, max_t = FLT_MAX where active, else -1).
+  ref < 0, the walk's contract) and does ``direct_light`` (``shade()``)
+  and ``next_ray``: the acc / dst updates, the BRDF weight, ``active``,
+  ``prev_delta`` and the next closest ray (flat, max_t = FLT_MAX where
+  active, else -1).
 
 What the second needs of the first travels in ``mid``, an (MID, n) f32
 buffer (rows below; the flags and the material row as int32 bits).
@@ -25,7 +25,7 @@ buffer (rows below; the flags and the material row as int32 bits).
 On CUDA tensors each wrapper launches its kernel and adds one to
 ``ops/traverse.py::ENTRY_LAUNCHES[entry]``; on CPU tensors it runs its
 plain version and adds one to ``PLAIN_CALLS[entry]``.  The plain versions
-are the torch body's own operations, split at the walks, so they equal
+call the torch body's own pieces on either side of ``mid``, so they equal
 the body bit for bit on either device; the kernels follow the card's
 rounding of those operations (the .cu file's note).
 
@@ -42,12 +42,11 @@ from typing import Any, Optional
 import torch
 
 import visionaray_torch.ops.traverse as trav
-from visionaray_torch.core.types import FLT_MAX, HitRecord, Ray
-from visionaray_torch.core.vecmath import faceforward, length
-from visionaray_torch.device import take
+from visionaray_torch.core.types import FLT_MAX, Ray
 from visionaray_torch.ops import traversal as tt
 from visionaray_torch.ops.sampling import Sampler
-from visionaray_torch.ops.trace import _merge, _recompute_hits
+from visionaray_torch.ops.trace import closest_hit
+from visionaray_torch.shading import bounce as shade
 from visionaray_torch.shading import brdf
 from visionaray_torch.shading.lights import light_groups
 from visionaray_torch.shading.surface import get_surface
@@ -65,6 +64,9 @@ MID_N, MID_WL, MID_I, MID_F, MID_WI, MID_PDF, MID_POS = 0, 3, 6, 9, 12, 15, 16
 MID_FLAGS, MID_GEOM, MID = 19, 20, 21
 HIT, ACTIVE, FIRE, TAKE_D, EMISSIVE, SPECULAR, ZERO_PDF = \
     1, 2, 4, 8, 16, 32, 64
+# the flags' bits by the mask of the hit record or the ``Shade`` they hold
+BITS = dict(hit=HIT, active=ACTIVE, fire=FIRE, take_d=TAKE_D,
+            emissive=EMISSIVE, specular=SPECULAR, zero_pdf=ZERO_PDF)
 MAT_COLS = 31      # material table columns (the .cu file's MatCol)
 LIGHT_COLS = 10    # position, cl, kl, attenuation
 
@@ -99,7 +101,8 @@ def material_table(mats) -> torch.Tensor:
 
 def light_table(lights) -> torch.Tensor:
     """(L, LIGHT_COLS) f32 of every point light, in the order
-    ``_nee_direct`` numbers them: position, cl, kl, attenuation."""
+    ``shading/bounce.py::light_sample`` numbers them: position, cl, kl,
+    attenuation."""
     rows = [torch.cat([g.position, g.cl, g.kl[:, None], g.attenuation],
                       dim=1) for g in light_groups(lights)]
     return torch.cat(rows, dim=0).to(torch.float32).contiguous()
@@ -342,122 +345,54 @@ def launch_close(lib, sh: Shading, d, hit: Hit, shadow_ref, dst, acc,
 
 
 # ---------------------------------------------------------------------------
-# The plain versions: the torch body's operations, split at the walks.
-
-
-def _flags(**bits):
-    names = dict(hit=HIT, active=ACTIVE, fire=FIRE, take_d=TAKE_D,
-                 emissive=EMISSIVE, specular=SPECULAR, zero_pdf=ZERO_PDF)
-    out = 0
-    for name, b in bits.items():
-        out = out + b.to(torch.int32) * names[name]
-    return out
+# The plain versions: the torch body's pieces (shading/bounce.py) around
+# the walks.
 
 
 def shade_hit_plain(sh: Shading, o, d, ref, state, active, dst, acc,
                     bounce: int) -> Hit:
-    """``shade_hit`` in plain PyTorch: ``bounce_body`` from its closest
-    hit to its shadow walk, with ``closest_hit``'s record of the walk's
-    winner and ``_nee_direct``'s light pick (point lights)."""
+    """``shade_hit`` in plain PyTorch: the walk's ``ref`` replayed through
+    ``closest_hit`` (a one-entry ``TraceTape``; its closest front end reads
+    the ref alone), ``get_surface``, ``shade.at_hit`` and, with NEE,
+    ``shade.light_sample``; ``mid`` packs the ``Shade``."""
     scene = sh.scene
-    n = o.shape[0]
-    dev = o.device
     ray = Ray(ori=o, dir=d)
-    max_t = torch.where(active, FLT_MAX, -1.0)
-    # ops/traversal.py::bvh_closest_hit and ops/trace.py::closest_hit
-    hit0 = ref >= 0
-    pid = take(scene.bvh.prim_ids, torch.clamp_min(ref, 0))
-    t, u, v, pid, gid = _recompute_hits(o, d, scene.mesh, hit0, pid)
-    best = _merge(HitRecord.none((n,), dev),
-                  HitRecord(hit=hit0, t=t, prim_id=pid, geom_id=gid, u=u,
-                            v=v))
-    keep = best.hit & (best.t < max_t)
-    hit_rec = HitRecord(
-        hit=keep, t=torch.where(keep, best.t, FLT_MAX),
-        prim_id=best.prim_id, geom_id=best.geom_id,
-        u=torch.where(keep, best.u, 0.0), v=torch.where(keep, best.v, 0.0))
-    surf = get_surface(hit_rec, ray, scene)
-
-    exited = active & ~hit_rec.hit
+    tape = trav.TraceTape()
+    tape.outs.append((None, ref))
+    with trav.replaying(tape):
+        hit_rec = closest_hit(ray, scene,
+                              max_t=torch.where(active, FLT_MAX, -1.0))
+    h, dst, acc = shade.at_hit(hit_rec, get_surface(hit_rec, ray, scene),
+                               ray, Sampler(state), active, dst, acc,
+                               amb=sh.amb, nee=sh.nee)
+    shadow = mt = None
     if sh.nee:
-        carry = torch.where(exited[..., None], acc + dst * sh.amb, acc)
-    else:
-        carry = torch.where(exited[..., None], dst * sh.amb, dst)
-    active = active & hit_rec.hit
-    view_dir = -d
-    nrm = faceforward(surf.shading_normal, view_dir, surf.geometric_normal)
-    if sh.nee:
-        (u_lobe, u1, u2, ul, _, _), sampler = Sampler(state).next_n(6)
-    else:
-        (u_lobe, u1, u2), sampler = Sampler(state).next_n(3)
-    src, refl_dir, pdf = surf.materials.sample(nrm, view_dir, u_lobe, u1,
-                                               u2)
-    zero_pdf = pdf <= 0.0
-    emissive = surf.materials.is_emissive()
-    specular = surf.materials.is_specular()
-    isect_pos = ray.at(torch.where(hit_rec.hit, hit_rec.t, 1.0))
-
-    zeros3 = torch.zeros((n, 3), dtype=torch.float32, device=dev)
-    no = torch.zeros((n,), dtype=torch.bool, device=dev)
-    take_d, fire, wi, I = no, no, zeros3, zeros3
-    so = sd = mt = fired = None
-    if sh.nee:
-        take_d = active & ~emissive & ~specular
-    if sh.nee and sh.total > 0:
-        # kernels/pathtracing.py::_nee_direct up to its shadow walk
-        total = sh.total
-        batch = (n,)
-        sel_idx = torch.clamp_max((ul * total).to(torch.int32), total - 1)
-        P = torch.zeros(batch + (3,), dtype=torch.float32, device=dev)
-        I = torch.zeros(batch + (3,), dtype=torch.float32, device=dev)
-        g = torch.ones(batch, dtype=torch.float32, device=dev)
-        idx = 0
-        for lgroup in light_groups(scene.lights):
-            for li in range(lgroup.num_lights):
-                sel = sel_idx == idx
-                P_l = lgroup.position[li].expand(batch + (3,))
-                g_l = torch.ones(batch, dtype=torch.float32, device=dev)
-                I_l = lgroup.intensity(li, isect_pos)
-                P = torch.where(sel[..., None], P_l, P)
-                I = torch.where(sel[..., None], I_l, I)
-                g = torch.where(sel, g_l, g)
-                idx += 1
-        to_light = P - isect_pos
-        dist = length(to_light)
-        wi = to_light / torch.clamp_min(dist, 1e-12)[..., None]
-        fire = (torch.sum(nrm * wi, dim=-1) > 0.0) & (g > 0.0)
-        fire = fire & take_d
-        eps = sh.eps
-        mt = torch.where(fire, dist - 2.0 * eps, -1.0)
-        if sh.reversed:
-            so, sd = P - wi * eps, -wi
-        else:
-            so, sd = isect_pos + wi * eps, wi
-        fired = fire
-
-    flags = _flags(hit=hit_rec.hit, active=active, fire=fire, take_d=take_d,
-                   emissive=emissive, specular=specular, zero_pdf=zero_pdf)
-    mid = torch.cat([nrm.T, wi.T, I.T, src.T, refl_dir.T, pdf[None],
-                     isect_pos.T, flags.to(torch.int32).view(
-                         torch.float32)[None],
+        h, shadow, mt = shade.light_sample(scene.lights, h, sh.eps,
+                                           reversed_shadow=sh.reversed)
+    zeros = torch.zeros_like(h.n)
+    masks = dict(h._asdict(), hit=hit_rec.hit)
+    flags = sum(masks[f].to(torch.int32) * b for f, b in BITS.items()
+                if masks[f] is not None)
+    mid = torch.cat([h.n.T, (zeros if h.wi is None else h.wi).T,
+                     (zeros if h.I is None else h.I).T, h.src.T,
+                     h.refl_dir.T, h.pdf[None], h.pos.T,
+                     flags.to(torch.int32).view(torch.float32)[None],
                      hit_rec.geom_id.to(torch.int32).view(
                          torch.float32)[None]], dim=0).contiguous()
     first = bounce == 0
-    return Hit(state=sampler.state, carry=carry,
+    return Hit(state=h.sampler.state, carry=acc if sh.nee else dst,
                first_hit=hit_rec.hit if first else None,
                first_t=hit_rec.t if first else None,
-               shadow_o=None if so is None else so.contiguous(),
-               shadow_d=None if sd is None else sd.contiguous(),
-               shadow_t=mt, fire=fired, mid=mid)
+               shadow_o=None if shadow is None else shadow.ori.contiguous(),
+               shadow_d=None if shadow is None else shadow.dir.contiguous(),
+               shadow_t=mt, fire=h.fire, mid=mid)
 
 
 def shade_close_plain(sh: Shading, d, hit: Hit, shadow_ref, dst, acc,
                       prev_delta, bounce: int) -> Close:
-    """``shade_close`` in plain PyTorch: ``_nee_direct`` after its shadow
-    walk and ``bounce_body`` after it."""
+    """``shade_close`` in plain PyTorch: ``hit.mid`` unpacked into the
+    ``Shade``, ``shade.direct_light`` (NEE) and ``shade.next_ray``."""
     mid = hit.mid
-    n = d.shape[0]
-    dev = d.device
 
     def rows3(r):
         # (n, 3) in the body's layout: a reduction over the last axis
@@ -465,41 +400,24 @@ def shade_close_plain(sh: Shading, d, hit: Hit, shadow_ref, dst, acc,
         # contiguous row, in order over a strided one)
         return mid[r:r + 3].T.contiguous()
 
-    nrm, src, refl_dir, pos = (rows3(MID_N), rows3(MID_F), rows3(MID_WI),
-                               rows3(MID_POS))
-    pdf = mid[MID_PDF]
     flags = mid[MID_FLAGS].view(torch.int32)
-
-    def bit(b):
-        return (flags & b) != 0
-
-    active, emissive, zero_pdf = bit(ACTIVE), bit(EMISSIVE), bit(ZERO_PDF)
-    view_dir = -d
+    bit = {f: (flags & b) != 0 for f, b in BITS.items() if f != "hit"}
+    fire = bit.pop("fire")
+    h = shade.Shade(n=rows3(MID_N), view_dir=-d, src=rows3(MID_F),
+                    refl_dir=rows3(MID_WI), pdf=mid[MID_PDF],
+                    pos=rows3(MID_POS), **bit)
+    direct = None
     if sh.nee:
-        if sh.total > 0:
-            mats = sh.scene.materials.take(mid[MID_GEOM].view(torch.int32))
-            wi, I = rows3(MID_WL), rows3(MID_I)
-            g = torch.ones((n,), dtype=torch.float32, device=dev)
-            visible = bit(FIRE) & ~(shadow_ref >= 0)
-            direct = mats.shade(nrm, view_dir, wi, I)
-            direct = direct * (g * visible * float(sh.total))[..., None]
-        else:
-            direct = torch.zeros((n, 3), dtype=torch.float32, device=dev)
-        acc = torch.where(bit(TAKE_D)[..., None], acc + dst * direct, acc)
-        take_e = active & emissive & ((bounce == 0) | prev_delta)
-        acc = torch.where(take_e[..., None], acc + dst * src, acc)
-
-    safe_pdf = torch.where(zero_pdf, 1.0, pdf)
-    ndotwi = torch.sum(nrm * refl_dir, dim=-1)
-    weight = torch.where(emissive, 1.0, ndotwi / safe_pdf)
-    src = src * weight[..., None]
-    upd = active & ~zero_pdf
-    if sh.nee:
-        upd = upd & ~emissive
-    dst = torch.where(upd[..., None], dst * src, dst)
-    dst = torch.where((zero_pdf & active)[..., None], 0.0, dst)
-    active = active & ~emissive & ~zero_pdf
-    o = pos + refl_dir * sh.eps
-    return Close(o=o.contiguous(), d=refl_dir.contiguous(),
+        if shadow_ref is not None:
+            h = h._replace(
+                mats=sh.scene.materials.take(mid[MID_GEOM].view(torch.int32)),
+                wi=rows3(MID_WL), I=rows3(MID_I), g=torch.ones_like(h.pdf),
+                fire=fire, total=sh.total)
+        direct = shade.direct_light(
+            h, None if shadow_ref is None else shadow_ref >= 0)
+    ray, active, dst, acc, prev_delta = shade.next_ray(
+        h, direct, dst, acc, prev_delta, eps=sh.eps, nee=sh.nee,
+        first=bounce == 0)
+    return Close(o=ray.ori.contiguous(), d=ray.dir.contiguous(),
                  max_t=torch.where(active, FLT_MAX, -1.0), dst=dst, acc=acc,
-                 active=active, prev_delta=active & bit(SPECULAR))
+                 active=active, prev_delta=prev_delta)

@@ -401,8 +401,7 @@ def ring_any_hit_local(ray: Ray, max_t, soup: SoupMesh, bvh, shard_lo,
     occluded = torch.zeros(batch, dtype=torch.bool, device=dev)
     t = torch.full(batch, FLT_MAX, dtype=torch.float32, device=dev)
     for _ in range(D):
-        tn, tf, bh = intersect_aabb(ray.ori, 1.0 / torch.where(
-            torch.abs(ray.dir) < 1e-30, 1e-30, ray.dir), shard_lo, shard_hi)
+        tn, tf, bh = _cull(ray, shard_lo, shard_hi)
         want = ~occluded & bh & (tf >= 0.0) & (tn < mt)
         hr = _local_any(ray, soup, bvh, backend, torch.where(want, mt, -1.0))
         occluded = occluded | hr.hit

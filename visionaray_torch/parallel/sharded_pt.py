@@ -108,7 +108,7 @@ def pathtrace_pixels_sharded(shard: Shard, materials, lights, x, y, cam,
         ray = cam.primary_rays(x, y, width, height, jitter)
         rec = pathtrace_loop(
             ray, samp, num_bounces=num_bounces, tracer=tracer, tracer0=None,
-            lights=lights, nc=nc, amb3=amb3,
+            lights=lights, amb3=amb3,
             bg_color=torch.as_tensor(bg_color, dtype=torch.float32,
                                      device=dev),
             eps=eps, nee=nee, recompute=False)

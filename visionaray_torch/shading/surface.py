@@ -32,7 +32,6 @@ class Surface:
 def get_surface(hit: HitRecord, ray: Ray, scene) -> Surface:
     batch = tuple(hit.t.shape)
     dev = hit.t.device
-    isect_pos = ray.at(torch.where(hit.hit, hit.t, 1.0))
     ptype = prim_type_of(scene, hit.prim_id)
 
     geom_n = torch.zeros(batch + (3,), dtype=torch.float32, device=dev)
@@ -65,6 +64,7 @@ def get_surface(hit: HitRecord, ray: Ray, scene) -> Surface:
         sp_idx = torch.clamp(hit.prim_id - nt, 0, max(ns - 1, 0))
         center = take(scene.spheres.center, sp_idx)
         radius = take(scene.spheres.radius, sp_idx)
+        isect_pos = ray.at(torch.where(hit.hit, hit.t, 1.0))
         sp_n = (isect_pos - center) / radius[..., None]
         is_sp = (ptype == PRIM_SPHERE)[..., None]
         geom_n = torch.where(is_sp, sp_n, geom_n)
