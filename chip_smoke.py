@@ -102,8 +102,9 @@ Phases, each of which fails the run (non-zero exit) when it fails:
     NEE frame of phase 3 (lbvh_frame_s), its launches per mode; (c) the
     full-width training step (lbvh_step_s, peak memory, 0 traversal launches
     in backward, finite non-zero gradients), its forward through the fused
-    bounce (5 + 5 shading launches; none in the backward, which recomputes
-    the torch body); (d) multi_hit(primary rays,
+    bounce (5 + 5 shading launches; none in the backward, which launches
+    the pair's adjoint kernel once a bounce and recomputes no bounce of the
+    torch body); (d) multi_hit(primary rays,
     k=16) (lbvh_multi_hit_s): one lbvh_multi launch, t sorted along k, slot
     0 the simple frame's hit; (e) the simple frame through phase 13's
     prim % 7 filter (lbvh_filtered_frame_s), its re-trace launches; (f) the
@@ -118,7 +119,8 @@ Phases, each of which fails the run (non-zero exit) when it fails:
     tests/test_torch_cuda_bounce.py's limit, hit and depth equal; (g) (c)'s
     step again, fused and through the torch body on the same inputs and
     draws: loss and gradients within sponza_lbvh.train's limits of
-    ``correct`` (STEP_GAPS), no shading kernel in the torch body's.  Every
+    ``correct`` (STEP_GAPS), the fused step's backward the adjoint kernel
+    once a bounce, no shading kernel in the torch body's.  Every
     walk's
     launch mode (first, middle and last launch) is held against the plain
     version on COMPARE_LANES lanes: hit equal everywhere, t equal on the
@@ -1690,17 +1692,27 @@ def lbvh_phase(cpu_mesh, dev, entries):
     ok &= good
 
     # (c) the training step on the LBVH
-    good, out["step"] = training_step_phase(
-        params, cam, x, y, label="lbvh training step",
-        modes=("lbvh_closest", "lbvh_any"))
+    with recompute_counted() as recomputed:
+        good, out["step"] = training_step_phase(
+            params, cam, x, y, label="lbvh training step",
+            modes=("lbvh_closest", "lbvh_any"))
     good &= out["step"]["forward_entries"][LBVH_ENTRY] == sum(
         out["step"]["forward_launches"].values())
     # the fused bounce under autograd: the two shading kernels once a
-    # bounce in the forward, none in the backward (its recompute is the
-    # torch body)
+    # bounce in the forward, none in the backward; the backward the
+    # adjoint kernel once a bounce, and no bounce of the torch body
+    # recomputed in any of the phase's steps
     good &= all(out["step"]["forward_entries"][e] == BOUNCES
                 and out["step"]["backward_entries"][e] == 0
                 for e in (bs.ENTRY_HIT, bs.ENTRY_CLOSE))
+    good &= (out["step"]["forward_entries"][bs.ENTRY_BWD] == 0
+             and out["step"]["backward_entries"][bs.ENTRY_BWD] == BOUNCES)
+    out["step"]["recomputed_bounces"] = recomputed[0]
+    good &= recomputed[0] == 0
+    log(f"  lbvh training step backward: {bs.ENTRY_BWD} "
+        f"{out['step']['backward_entries'][bs.ENTRY_BWD]} launches (want "
+        f"{BOUNCES}), torch-body bounces recomputed {recomputed[0]} (want 0) "
+        f"{'OK' if good else 'FAIL'}")
     ok &= good
 
     # (g) the same step through the torch body
@@ -1869,16 +1881,35 @@ def _outputs_differ(pairs):
     return lanes, big
 
 
+@contextlib.contextmanager
+def recompute_counted():
+    """kernels/pathtracing.py's ``_recompute`` (the context of a bounce of
+    the torch body recomputed in a backward) counting its entries into
+    the yielded one-item list."""
+    count, was = [0], pt._recompute
+
+    def counting(tape):
+        count[0] += 1
+        return was(tape)
+
+    pt._recompute = counting
+    try:
+        yield count
+    finally:
+        pt._recompute = was
+
+
 def fused_step_phase(params, cam, x, y):
     """Phase 14g: the full-width training step of (c) through the fused
     bounce, ``pathtracing_kernel``'s pick under autograd, and through the
     torch body (``_torch_body`` in render's kernel table), on the same
-    inputs and draws: the fused step launches each shading kernel once a
-    bounce, and its loss and gradients are within sponza_lbvh.train's
+    inputs and draws: the fused step launches each shading kernel and the
+    adjoint kernel once a bounce, and its loss and gradients are within
+    sponza_lbvh.train's
     limits of ``correct`` of the torch body's (STEP_GAPS; relative, the
     gradients by L2 norm, as benchmark/harness/check.py reads them)."""
     verts, cd = params.scene.mesh.vertices, params.scene.materials.cd
-    entries = (bs.ENTRY_HIT, bs.ENTRY_CLOSE)
+    entries = (bs.ENTRY_HIT, bs.ENTRY_CLOSE, bs.ENTRY_BWD)
     trav.reset_launch_counts()
     loss, (gv, gc) = step.loss_and_grads(verts, cd, 6, params, cam, x, y,
                                          nee=True)

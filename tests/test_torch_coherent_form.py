@@ -27,7 +27,8 @@ KS = (8, 16, 24, 32, 40)   # the unrolled sizes, and two run-time-K ones
 ENTRIES = ("vsnray_traverse_binned", "vsnray_traverse_coherent",
            "vsnray_traverse_lbvh", "vsnray_volume_march",
            "vsnray_volume_march_bwd", "vsnray_volume_bricks",
-           "vsnray_bounce_shade_hit", "vsnray_bounce_shade_close")
+           "vsnray_bounce_shade_hit", "vsnray_bounce_shade_close",
+           "vsnray_bounce_shade_bwd")
 
 
 def _takes(entry, heap, two_pass, fanout, half_skip, K):
@@ -85,11 +86,12 @@ def test_launch_form_entry(K, any_hit):
 def test_sources_and_counts():
     """The library is built from the six kernel sources, each holding
     one entry point but volume_march.cu, which also holds its brick
-    table's, and bounce_shade.cu, which holds the bounce's two, and no
-    other source sits beside them (radix trees run traverse_binned.cu's
-    lane walk; the LBVH tier's flat trees traverse_lbvh.cu; the volume
-    renderer volume_march.cu and its backward volume_march_bwd.cu; the
-    path tracer's inference bounce bounce_shade.cu);
+    table's, and bounce_shade.cu, which holds the bounce's two and their
+    adjoint, and no other source sits beside them (radix trees run
+    traverse_binned.cu's lane walk; the LBVH tier's flat trees
+    traverse_lbvh.cu; the volume renderer volume_march.cu and its
+    backward volume_march_bwd.cu; the path tracer's fused bounce
+    bounce_shade.cu);
     ENTRY_LAUNCHES counts per entry point and resets with the other
     counts."""
     names = sorted(p.name for p in trav.SOURCES)
@@ -107,7 +109,8 @@ def test_sources_and_counts():
                                 "vsnray_volume_bricks"],
             "volume_march_bwd.cu": ["vsnray_volume_march_bwd"],
             "bounce_shade.cu": ["vsnray_bounce_shade_hit",
-                                "vsnray_bounce_shade_close"]}[src.name]
+                                "vsnray_bounce_shade_close",
+                                "vsnray_bounce_shade_bwd"]}[src.name]
     assert set(trav.ENTRY_LAUNCHES) == set(ENTRIES)
     trav.ENTRY_LAUNCHES["vsnray_traverse_coherent"] += 1
     trav.reset_launch_counts()

@@ -5,7 +5,9 @@ Per bounce, the kernels and the plain versions take the same inputs:
 every output is compared, the carry, the sampler state, the first hit,
 the shadow and next rays and the buffer between the kernels.  Then a
 256x256 NEE frame of the sponza-like scene through the fused path against
-the torch body (kernels/pathtracing.py::_torch_body).
+the torch body (kernels/pathtracing.py::_torch_body).  Last, per bounce
+under autograd, the pair's adjoint kernel against its plain version, the
+torch body's recompute, on the same inputs and output gradients.
 
 Marked ``cuda``: each test skips itself when torch.cuda.is_available() is
 False (decided inside the fixture, never at import).  On a GPU machine:
@@ -13,7 +15,9 @@ False (decided inside the fixture, never at import).  On a GPU machine:
     python -m pytest tests/test_torch_cuda_bounce.py -q
 
 The kernels are built with -fmad=false and follow the card's rounding of
-each torch operation, so every output must be equal, bit for bit.
+each torch operation, so every output must be equal, bit for bit.  The
+adjoint is not: it takes each lane's chain rule in float32 in its own
+order, and sums the lanes' shares by atomics (ADJOINT_TOL).
 """
 
 import dataclasses
@@ -21,7 +25,11 @@ import dataclasses
 import pytest
 import torch
 
+import visionaray_torch.core.scene as scene_module
+import visionaray_torch.ops.trace as trace_module
+import visionaray_torch.shading.materials as materials_module
 from visionaray_torch.core.types import FLT_MAX
+from visionaray_torch.device import take
 from visionaray_torch.kernels import pathtracing as pt
 from visionaray_torch.kernels.params import KernelParams
 from visionaray_torch.ops import bounce_shade as bs
@@ -110,19 +118,33 @@ def _differ(a, b):
     return int(lanes.sum()), big
 
 
-@pytest.mark.parametrize("case", list(CASES))
-def test_kernels_equal_plain_per_bounce(cuda, sponza, case):
+def _case(sponza, case, leaves=()):
+    """The case's scene, camera and parameters; ``leaves``: the scene
+    tensors ("vertices", "cd") made leaves that require grad."""
     opt = CASES[case]
     scene, cam = sponza
     if opt.get("mixed"):
         scene = _mixed(scene, opt.get("corner", False))
     if opt.get("lights") is False:
         scene = dataclasses.replace(scene, lights=None)
-    nee = opt["nee"]
+    if "vertices" in leaves:
+        scene = dataclasses.replace(scene, mesh=dataclasses.replace(
+            scene.mesh,
+            vertices=scene.mesh.vertices.detach().clone().requires_grad_()))
+    if "cd" in leaves:
+        scene = dataclasses.replace(scene, materials=dataclasses.replace(
+            scene.materials,
+            cd=scene.materials.cd.detach().clone().requires_grad_()))
     params = KernelParams.create(
         scene, num_bounces=BOUNCES, epsilon=1e-3,
         ambient_color=(1.0, 1.0, 1.0, 1.0),
         trace=TraceConfig(shadow_reversed=opt.get("reversed", True)))
+    return scene, cam, params, opt["nee"]
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_kernels_equal_plain_per_bounce(cuda, sponza, case):
+    scene, cam, params, nee = _case(sponza, case)
     x, y = _pixel_grid(W, H, cuda)
     report = []
     with torch.inference_mode():
@@ -201,3 +223,105 @@ def test_frame_equals_torch_body(cuda, sponza):
     assert float(off.float().mean()) <= 1e-4, int(off.sum())
     assert torch.equal(fused.hit, body.hit)
     assert torch.equal(fused.depth, body.depth)
+
+
+# The adjoint against the recompute, relative L2 of each gradient, from
+# random gradients of the bounce's outputs.  Both are float32 and take
+# each lane's chain rule in their own order; the vertices' gradient is a
+# sum of the lanes' Moeller-Trumbore shares, which random signs and the
+# near cancellation of a triangle's v1, e1 and e2 shares make the most
+# sensitive to rounding: on the CPU (48x48, the kernel built with g++)
+# each of the two sits 1.2e-6 to 2.7e-5 from the same bounce recomputed
+# in f64, and 1.3e-6 to 3.3e-6 from the other; on the card the two were
+# up to 1.1e-5 apart.  So the vertices' gap may reach the float32 noise
+# of that sum, 5e-5, and every other gradient's 1e-5 (at most 5.7e-7
+# seen: the ray's, dst's and acc's are each lane's own, the albedo's is
+# summed in f64 on both sides).
+ADJOINT_TOL = {"vertices": 5e-5}
+ADJOINT_TOL_REST = 1e-5
+
+
+def f64_sums(x, idx):
+    """``device.take`` whose backward sums in f64 into a float32 tensor
+    that requires grad (the forward bit-equal): the torch body's gathers
+    of the vertices, the triangles' corners and the albedo summed over
+    the lanes exactly, as the adjoint sums the albedo."""
+    if x.requires_grad and x.dtype == torch.float32:
+        return take(x.double(), idx).float()
+    return take(x, idx)
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_adjoint_equals_recompute_per_bounce(cuda, sponza, case,
+                                             monkeypatch):
+    """Per bounce of a 96x96 frame, ``_FusedBounce`` with the vertices and
+    the albedo as leaves and the ray, dst and acc requiring grad: its
+    backward launches the adjoint kernel once and no recompute, and the
+    gradients of all six, from random gradients of the bounce's outputs,
+    are finite and within ADJOINT_TOL of the backward through the torch
+    body's recompute (``_adjoint_ok`` off) on the same inputs, its
+    gathers summed in f64 (``f64_sums``)."""
+    scene, cam, params, nee = _case(sponza, case, ("vertices", "cd"))
+    leaves = [t for _, t in pt._grad_leaves(params)]
+    wrt_leaves = [scene.mesh.vertices, scene.materials.cd]
+    x, y = _pixel_grid(W, H, cuda)
+    with torch.no_grad():
+        ray = cam.primary_rays(x, y, W, H, None)
+        fr = pt._Frame(params=params, sh=bs.Shading.of(params, nee),
+                       tables=tt.prim_tables("triangle", scene.mesh),
+                       nee=nee,
+                       paths=tuple(p for p, _ in pt._grad_leaves(params)))
+    n = x.shape[0]
+    c = pt._Carry(
+        o=ray.ori.contiguous(), d=ray.dir.contiguous(),
+        max_t=torch.full((n,), FLT_MAX, device=cuda),
+        state=Sampler.seed(11, (y * W + x).to(torch.int64), 3).state,
+        active=torch.ones(n, dtype=torch.bool, device=cuda),
+        dst=torch.ones((n, 3), device=cuda),
+        acc=torch.zeros((n, 3), device=cuda),
+        prev_delta=torch.zeros(n, dtype=torch.bool, device=cuda))
+    gen = torch.Generator().manual_seed(7)
+    report = []
+    for b in range(BOUNCES):
+        grads = {}
+        for path in ("adjoint", "recompute"):
+            xs = {f: getattr(c, f).detach().clone().requires_grad_(
+                f in pt._DIFF_IN) for f in pt._IN}
+            with torch.enable_grad():
+                out = pt._Carry(*pt._FusedBounce.apply(
+                    fr, b, *[xs[f] for f in pt._IN], *leaves))
+            ys = [(f, getattr(out, f)) for f in pt._DIFF_IN + (
+                "first_t",) if getattr(out, f) is not None
+                and getattr(out, f).requires_grad]
+            if path == "adjoint":
+                gs = {f: torch.randn(y.shape, generator=gen).to(cuda)
+                      for f, y in ys}
+            wrt = [xs[f] for f in pt._DIFF_IN] + wrt_leaves
+            with monkeypatch.context() as m:
+                if path == "recompute":
+                    m.setattr(pt, "_adjoint_ok", lambda fr, dev: False)
+                    for mod in (materials_module, scene_module,
+                                trace_module):
+                        m.setattr(mod, "take", f64_sums)
+                before = trav.ENTRY_LAUNCHES[bs.ENTRY_BWD]
+                grads[path] = torch.autograd.grad(
+                    [y for _, y in ys], wrt, [gs[f] for f, _ in ys],
+                    allow_unused=True)
+                launched = trav.ENTRY_LAUNCHES[bs.ENTRY_BWD] - before
+            assert launched == (path == "adjoint"), (path, launched)
+        names = list(pt._DIFF_IN) + ["vertices", "cd"]
+        for name, a, r in zip(names, grads["adjoint"],
+                              grads["recompute"]):
+            if r is None:
+                r = torch.zeros_like(a)
+            if not bool(torch.isfinite(a).all()):
+                report.append(f"bounce {b} {name}: not finite")
+                continue
+            den = float(r.norm())
+            gap = float((a - r).norm()) / (den if den > 0 else 1.0)
+            if gap > ADJOINT_TOL.get(name, ADJOINT_TOL_REST):
+                report.append(f"bounce {b} {name}: {gap:.3g} of "
+                              f"|{den:.4g}|")
+        with torch.no_grad():
+            c = pt._Carry(*pt._fused_bounce(fr, b, c)[:8])
+    assert not report, "\n".join(report)

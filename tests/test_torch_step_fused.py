@@ -18,6 +18,8 @@ import dataclasses
 import pytest
 import torch
 
+import visionaray_torch.core.scene as scene_module
+import visionaray_torch.ops.trace as trace_module
 from visionaray_torch.kernels import pathtracing as pt
 from visionaray_torch.kernels.params import KernelParams
 from visionaray_torch.ops import bounce_shade as bs
@@ -26,12 +28,14 @@ from visionaray_torch.ops.sampling import Sampler
 from visionaray_torch.sched import render, step
 from visionaray_torch.scenes.sponza_like import sponza_like_scene
 from visionaray_torch.sched.render import _pixel_grid
+from visionaray_torch.shading import materials as materials_module
 from visionaray_torch.shading.spectrum import lift_scene
 from visionaray_torch.utils import metrics
 
 from test_torch_bounce_fused import (
     _area, _box, _frame, _textured, _treelets,
 )
+from test_torch_cuda_bounce import f64_sums
 
 torch.set_num_threads(1)
 CPU = "cpu"
@@ -274,6 +278,125 @@ def test_excluded_step_takes_the_torch_body(case):
     assert bool(torch.isfinite(gv).all() & torch.isfinite(gc).all())
 
 
+LEAVES = {
+    "vertices_and_albedo": ((("mesh", "vertices"), ("materials", "cd")),
+                            True),
+    "vertices": ((("mesh", "vertices"),), True),
+    "albedo": ((("materials", "cd"),), True),
+    "ray_and_carry_only": ((), True),
+    "light_cl": ((("mesh", "vertices"), ("lights", "cl")), False),
+    "material_ks": ((("materials", "cd"), ("materials", "ks")), False),
+    "specular_exp": ((("materials", "specular_exp"),), False),
+    "normals": ((("mesh", "normals"),), False),
+    "corner_normals": ((("mesh", "corner_normals"),), False),
+    "epsilon": ((("epsilon",),), False),
+}
+
+
+def _with_grads(params, paths):
+    """``params`` with a copy of each tensor at ``paths`` (from the
+    scene, or ``("epsilon",)``) made a leaf that requires grad."""
+    for path in paths:
+        if path == ("epsilon",):
+            params = dataclasses.replace(params, epsilon=torch.tensor(
+                float(params.epsilon), requires_grad=True))
+            continue
+        obj = getattr(params.scene, path[0])
+        leaf = getattr(obj, path[1]).detach().clone().requires_grad_()
+        params = dataclasses.replace(params, scene=dataclasses.replace(
+            params.scene, **{path[0]: dataclasses.replace(
+                obj, **{path[1]: leaf})}))
+    return params
+
+
+@pytest.mark.parametrize("case", list(LEAVES))
+def test_backward_dispatch_by_leaves(case):
+    """``_FusedBounce``'s backward takes the adjoint kernel where the lanes
+    are on the card and every parameter tensor that requires grad is the
+    vertices or the albedo (the ray and the carry it differentiates
+    always); a light's, another material field's, the normals' or a
+    tensor epsilon's gradient keeps the torch body's recompute, as does
+    any CPU tensor."""
+    paths, kernel = LEAVES[case]
+    scene, _ = _box(lights=2, corner=case == "corner_normals")
+    params = _with_grads(_params(scene, 2), paths)
+    found = tuple(p for p, _ in pt._grad_leaves(params))
+    assert sorted(found) == sorted(
+        p if p == ("epsilon",) else ("scene",) + p for p in paths)
+    fr = pt._Frame(params=params, sh=None, tables=(), nee=True, paths=found)
+    assert pt._adjoint_ok(fr, torch.device("cuda")) == kernel
+    assert pt._adjoint_ok(fr, "cuda:0") == kernel
+    assert not pt._adjoint_ok(fr, torch.device("cpu"))
+
+
+@pytest.mark.parametrize("leaves", ("vertices_and_albedo", "albedo"))
+def test_adjoint_backward_wiring(leaves, monkeypatch):
+    """With the adjoint taken (``_adjoint_ok`` forced, the kernel's
+    wrapper replaced by a recorder that answers the recompute's
+    gradients), the step asks ``shade_backward`` once a bounce, last
+    bounce first, for exactly the gradients autograd needs (the leaves
+    that require grad; past bounce 0 dst, acc and, with the vertices,
+    the ray's origin), hands it the tape's refs (the shadow walk's with
+    NEE), and returns what it answers: the step's gradients equal the
+    recompute's."""
+    scene, cam = _box(corner=False)
+    params = _params(scene, 3)
+    calls = []
+    recompute = pt._FusedBounce.backward
+
+    def recorder(sh, o, d, ref, state, active, dst, acc, prev_delta,
+                 shadow_ref, g_o, g_d, g_dst, g_acc, g_first_t, bounce,
+                 want):
+        calls.append((bounce, set(want), shadow_ref is not None,
+                      ref.dtype, ref.shape == (o.shape[0],)))
+        return bs.Grads(*answers.pop())
+
+    # the recompute's answers, bounce by bounce, recorded first
+    answers = []
+
+    def keep(ctx, *grads):
+        out = recompute(ctx, *grads)
+        fields = {f: out[pt._ARG[f]] for f in pt._DIFF_IN}
+        leaf = {ctx.fr.paths[i]: out[pt._LEAF0 + i]
+                for i in range(len(ctx.fr.paths))}
+        answers.insert(0, (
+            *(fields[f] for f in pt._DIFF_IN),
+            leaf.get(("scene", "mesh", "vertices")),
+            leaf.get(("scene", "materials", "cd"))))
+        return out
+
+    x, y = _pixel_grid(W, H, CPU)
+    verts, cd = params.scene.mesh.vertices, params.scene.materials.cd
+    if leaves == "albedo":
+        def step_grads():
+            with torch.enable_grad():
+                c = cd.detach().requires_grad_()
+                loss = step.frame_loss(verts, c, 3, params, cam, x, y,
+                                       True, width=W, height=H, tile=W * H)
+                return loss.detach(), torch.autograd.grad(loss, (c,))
+    else:
+        def step_grads():
+            return step.loss_and_grads(verts, cd, 3, params, cam, x, y,
+                                       nee=True, width=W, height=H,
+                                       tile=W * H)
+    with monkeypatch.context() as m:
+        m.setattr(pt._FusedBounce, "backward", staticmethod(keep))
+        want_loss, want = step_grads()
+    with monkeypatch.context() as m:
+        m.setattr(pt, "_adjoint_ok", lambda fr, dev: True)
+        m.setattr(bs, "shade_backward", recorder)
+        loss, got = step_grads()
+    assert torch.equal(loss, want_loss) and not answers
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    leaf = {"vertices", "cd"} if leaves == "vertices_and_albedo" else {"cd"}
+    assert [c[0] for c in calls] == [2, 1, 0]
+    ray = {"o"} if leaves == "vertices_and_albedo" else set()
+    assert [c[1] for c in calls] == [{"dst", "acc"} | ray | leaf] * 2 + [
+        leaf], [c[1] for c in calls]
+    assert all(c[2] and c[3] == torch.int32 and c[4] for c in calls)
+
+
 def test_recompute_spans_carry_recompute(monkeypatch):
     """Traced, the step on an LBVH with point lights takes the fused path
     (``pathtracing_kernel`` picks it under autograd): its forward opens
@@ -312,14 +435,29 @@ def test_recompute_spans_carry_recompute(monkeypatch):
     assert snap["counters"]["bounce.lanes"] == [W * H] * 5
 
 
+# The adjoint's gradients against the torch body's at the step, relative
+# L2: each lane's chain rule in float32 in another order than autograd's.
+# The vertices carry most of it, their Moeller-Trumbore shares nearly
+# cancelling: two float32 evaluations of the same step differ by 2.4e-6
+# there on the CPU (24x24 on sponza_like_scene(4000), the kernel built
+# with g++), while the albedo, summed in f64 by the kernel, differs from
+# the torch body's gathers summed in f64 (``f64_sums``) by 0 there.
+ADJOINT_TOL = 1e-5
+
+
 @pytest.mark.cuda
 def test_step_on_the_card(monkeypatch):
     """On the card, 256x256, 5-bounce NEE on the sponza-like scene: the
-    fused step's loss bit-equal to the torch body's, the gradients within
-    1e-6 relative L2, and five hit-kernel launches a step (none in the
-    backward).  Deterministic algorithms, so that the gathers' backward
-    sums each material's lanes in one order on both paths (with atomics
-    the torch body's albedo gradient differs from itself by ~8e-6)."""
+    fused step's loss bit-equal to the torch body's; five hit-kernel
+    launches a step, and five launches of the adjoint kernel in its
+    backward, whose gradients are within ADJOINT_TOL of the torch body's
+    (its gathers there summed in f64, ``f64_sums``);
+    and with the adjoint off (its plain version, the torch body's
+    recompute, as on the CPU) the gradients within 1e-6 relative L2 of
+    the torch body's.  Deterministic algorithms, so that the gathers'
+    backward sums each material's lanes in one order on the torch paths
+    (with atomics the torch body's albedo gradient differs from itself by
+    ~8e-6)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA GPU: the bounce kernels have no CPU or "
                     "interpret mode (the CPU runs their plain versions)")
@@ -339,11 +477,25 @@ def test_step_on_the_card(monkeypatch):
         torch.cuda.synchronize()
         assert trav.ENTRY_LAUNCHES[bs.ENTRY_HIT] == 5
         assert trav.ENTRY_LAUNCHES[bs.ENTRY_CLOSE] == 5
+        assert trav.ENTRY_LAUNCHES[bs.ENTRY_BWD] == 5
+        with monkeypatch.context() as m:
+            m.setattr(pt, "_adjoint_ok", lambda fr, d: False)
+            plain, (pv, pc) = _step(params, cam, True, "fused", m, **kw)
+        assert trav.ENTRY_LAUNCHES[bs.ENTRY_BWD] == 5
         body, (bv, bc) = _step(params, cam, True, "torch", monkeypatch,
                                **kw)
+        with monkeypatch.context() as m:
+            for mod in (materials_module, scene_module, trace_module):
+                m.setattr(mod, "take", f64_sums)
+            body64, (bv64, bc64) = _step(params, cam, True, "torch", m,
+                                         **kw)
     finally:
         torch.use_deterministic_algorithms(was[0], warn_only=was[1])
-    assert trav.ENTRY_LAUNCHES[bs.ENTRY_HIT] == 5
+    assert trav.ENTRY_LAUNCHES[bs.ENTRY_HIT] == 10
     assert torch.equal(loss, body), (float(loss), float(body))
-    assert _rel(gv, bv) <= 1e-6, _rel(gv, bv)
-    assert _rel(gc, bc) <= 1e-6, _rel(gc, bc)
+    assert torch.equal(plain, body) and torch.equal(body64, body)
+    assert _rel(pv, bv) <= 1e-6, _rel(pv, bv)
+    assert _rel(pc, bc) <= 1e-6, _rel(pc, bc)
+    assert bool(torch.isfinite(gv).all() & torch.isfinite(gc).all())
+    assert _rel(gv, bv64) <= ADJOINT_TOL, _rel(gv, bv64)
+    assert _rel(gc, bc64) <= ADJOINT_TOL, _rel(gc, bc64)

@@ -31,9 +31,12 @@ walk, the hit kernel, the shadow walk and the close kernel
 between the walks, shading/bounce.py, in two hand-written CUDA kernels;
 on the CPU, those operations themselves).  With autograd on, each such
 bounce is one autograd node (``_FusedBounce``): its forward is those
-launches, recording the walks on a ``TraceTape``; its backward is the
-checkpoint's recompute, the torch body's bounce replaying them, so the
-gradients are the torch body's.
+launches, recording the walks on a ``TraceTape``; its backward, on the
+card where the gradients asked for are the ray's, the carry's, the
+vertices' and the albedo's (``_adjoint_ok``), is one launch of the
+pair's adjoint kernel (``bounce_shade.shade_backward``), and otherwise
+the checkpoint's recompute, the torch body's bounce replaying the walks,
+which is also the adjoint's plain version.
 Every other input takes the torch body, ``pathtrace_loop``, which the
 ring tracer of parallel/sharded_pt.py needs too.
 """
@@ -354,6 +357,21 @@ _LEAF0 = 2 + len(_IN)
 _SAVED = ("o", "d", "state", "active", "dst", "acc", "prev_delta")
 _DIFF_IN = ("o", "d", "dst", "acc")
 _RAY_OUT = ("o", "d", "first_t")
+# the parameters' tensors (``_grad_leaves`` paths) whose gradients the
+# adjoint kernel gives, by its name for them
+_ADJOINT_LEAVES = {("scene", "mesh", "vertices"): "vertices",
+                   ("scene", "materials", "cd"): "cd"}
+
+
+def _adjoint_ok(fr: _Frame, dev) -> bool:
+    """Whether ``_FusedBounce``'s backward runs as the adjoint kernel: the
+    lanes are on the card and every parameter tensor that requires grad
+    is one the kernel differentiates (the vertices, ``cd``); the ray and
+    the carry it differentiates always.  Anything else (a light's
+    tensors, other material fields, normals, a tensor epsilon, or the
+    CPU) takes the torch body's recompute."""
+    return torch.device(dev).type == "cuda" and \
+        all(p in _ADJOINT_LEAVES for p in fr.paths)
 
 
 class _FusedBounce(torch.autograd.Function):
@@ -362,10 +380,12 @@ class _FusedBounce(torch.autograd.Function):
     bounce's input carry, the parameters' tensors that require grad and
     the tape, as ``pathtrace_loop``'s checkpoint keeps, and marks the
     outputs that the torch body would leave constant (``_ray_grads``).
-    Backward: the torch body's bounce (``_bounce_body``) recomputed on
-    detached copies of them with the walks replayed (``_recompute``: no
-    walk launches, spans carry ``recompute=True``), and
-    ``torch.autograd.grad`` through it."""
+    Backward: where ``_adjoint_ok`` holds, one launch of the adjoint kernel
+    from the saved carry and the tape's refs (``_adjoint``); else the
+    torch body's bounce (``_bounce_body``) recomputed on detached copies
+    of them with the walks replayed (``_recompute``: no walk launches,
+    spans carry ``recompute=True``), and ``torch.autograd.grad`` through
+    it."""
 
     @staticmethod
     def forward(ctx, fr, bounce, *args):
@@ -387,6 +407,8 @@ class _FusedBounce(torch.autograd.Function):
     @staticmethod
     def backward(ctx, *grads):
         fr, bounce = ctx.fr, ctx.bounce
+        if _adjoint_ok(fr, ctx.saved_tensors[0].device):
+            return _adjoint(ctx, grads)
         saved = ctx.saved_tensors
         c = dict(zip(_SAVED, saved))
         need = ctx.needs_input_grad
@@ -435,6 +457,32 @@ class _FusedBounce(torch.autograd.Function):
         for i, gi in zip(wrt, got):
             out[i] = gi
         return tuple(out)
+
+
+def _adjoint(ctx, grads):
+    """``_FusedBounce``'s backward as the adjoint kernel: the gradients of
+    the input carry's ray, dst and acc and of the vertices and ``cd``
+    that autograd asks for, from the saved carry and the walks' refs on
+    the tape."""
+    fr = ctx.fr
+    c = dict(zip(_SAVED, ctx.saved_tensors))
+    need = ctx.needs_input_grad
+    tape, ctx.tape = ctx.tape, None
+    shadow_ref = tape.outs[1][1] if len(tape.outs) > 1 else None
+    g = _Carry(*grads)
+    leaves = {_LEAF0 + i: _ADJOINT_LEAVES[p] for i, p in enumerate(fr.paths)}
+    want = {f for f in _DIFF_IN if need[_ARG[f]]} | \
+        {name for i, name in leaves.items() if need[i]}
+    got = bounce_shade.shade_backward(
+        fr.sh, c["o"], c["d"], tape.outs[0][1], c["state"], c["active"],
+        c["dst"], c["acc"], c["prev_delta"], shadow_ref, g.o, g.d, g.dst,
+        g.acc, g.first_t, ctx.bounce, want)
+    out = [None] * len(need)
+    for f in _DIFF_IN:
+        out[_ARG[f]] = getattr(got, f)
+    for i, name in leaves.items():
+        out[i] = getattr(got, name)
+    return tuple(out)
 
 
 def _fused_body(params: KernelParams, ray: Ray, sampler: Sampler,

@@ -1,6 +1,6 @@
 """The shading of one path-tracing bounce around its two LBVH walks, as two
-hand-written CUDA kernels (ops/cuda/bounce_shade.cu), and their plain
-PyTorch versions.
+hand-written CUDA kernels (ops/cuda/bounce_shade.cu), their plain PyTorch
+versions, and their adjoint kernel.
 
 ``kernels/pathtracing.py::_fused_body`` runs a bounce as four launches:
 the closest walk, ``shade_hit``, the shadow walk and ``shade_close``.
@@ -29,6 +29,13 @@ call the torch body's own pieces on either side of ``mid``, so they equal
 the body bit for bit on either device; the kernels follow the card's
 rounding of those operations (the .cu file's note).
 
+Under autograd ``shade_backward`` launches ``vsnray_bounce_shade_bwd``:
+from the gradients of a bounce's outputs, those of its ray, its dst and
+acc, the vertices and the albedo ``cd``, the lane's forward run again in
+the kernel (kernels/pathtracing.py::_FusedBounce.backward takes it on CUDA
+tensors when those are all the gradients asked for).  Its plain version
+is the torch body's recompute under autograd, which is also the CPU path.
+
 Scenes: triangles only, on a flat ``ops.lbvh.BVH`` (LBVH, SAH, SBVH), no
 textures, RGB colour, point lights (kernels/pathtracing.py::_fused_ok).
 """
@@ -53,6 +60,7 @@ from visionaray_torch.shading.surface import get_surface
 
 ENTRY_HIT = "vsnray_bounce_shade_hit"
 ENTRY_CLOSE = "vsnray_bounce_shade_close"
+ENTRY_BWD = "vsnray_bounce_shade_bwd"
 # calls of the plain versions (CPU tensors), by the entry point they stand
 # for
 PLAIN_CALLS = {ENTRY_HIT: 0, ENTRY_CLOSE: 0}
@@ -67,7 +75,7 @@ HIT, ACTIVE, FIRE, TAKE_D, EMISSIVE, SPECULAR, ZERO_PDF = \
 # the flags' bits by the mask of the hit record or the ``Shade`` they hold
 BITS = dict(hit=HIT, active=ACTIVE, fire=FIRE, take_d=TAKE_D,
             emissive=EMISSIVE, specular=SPECULAR, zero_pdf=ZERO_PDF)
-MAT_COLS = 31      # material table columns (the .cu file's MatCol)
+MAT_COLS = 32      # material table columns (the .cu file's MatCol)
 LIGHT_COLS = 10    # position, cl, kl, attenuation
 
 
@@ -78,7 +86,8 @@ def material_table(mats) -> torch.Tensor:
     body computes for every lane of that material: mtype (int32 bits),
     lambertian_f, pi * lambertian_f, cs * ks, 1 - cs * ks, exp, exp + 1,
     1 / (exp + 1), (exp + 2) / (8 pi), the plastic lobe's diffuse
-    probability, eta^2 + k^2, 2 eta, cr, kr, ce * ls."""
+    probability, eta^2 + k^2, 2 eta, cr, kr, ce * ls, and kd / pi (the
+    factor of cd in lambertian_f, for the adjoint)."""
     f_d = brdf.lambertian_f(mats.cd, mats.kd)
     spec = mats.cs * mats.ks[..., None]
     exp = mats.specular_exp
@@ -94,7 +103,7 @@ def material_table(mats) -> torch.Tensor:
             (exp + 1.0)[:, None], (1.0 / (exp + 1.0))[:, None],
             ((exp + 2.0) / (8.0 * math.pi))[:, None], prob_diff[:, None],
             eta * eta + k * k, 2.0 * eta, mats.cr, mats.kr[:, None],
-            mats.ce * mats.ls[..., None]]
+            mats.ce * mats.ls[..., None], (mats.kd * brdf.INV_PI)[:, None]]
     return torch.cat([c.to(torch.float32) for c in cols],
                      dim=1).contiguous()
 
@@ -229,12 +238,10 @@ def shade_hit(sh: Shading, o, d, ref, state, active, dst, acc,
     return out
 
 
-def launch_hit(lib, sh: Shading, o, d, ref, state, active, dst, acc,
-               bounce: int, stream) -> Hit:
-    """Check the scene's tables, allocate the outputs and call
-    ``lib.vsnray_bounce_shade_hit`` on inputs ``shade_hit`` has checked;
-    raises on a launch error."""
-    n = o.shape[0]
+def _tables(entry, sh: Shading, dev):
+    """The scene's tables a kernel reads, checked: the packed triangle
+    records, the BVH's prim ids, face normals, corner normals (None with
+    face binding), material ids, and the triangles' count."""
     mesh, bvh = sh.scene.mesh, sh.scene.bvh
     f32, i32 = torch.float32, torch.int32
     nt = mesh.num_prims
@@ -245,7 +252,7 @@ def launch_hit(lib, sh: Shading, o, d, ref, state, active, dst, acc,
     normals = mesh.normals.to(f32).contiguous()
     geom_ids = mesh.geom_ids.to(i32).contiguous()
     M = sh.mat.shape[0]
-    _check(ENTRY_HIT, o.device, n, [
+    _check(entry, dev, 0, [
         ("prims", prims, (bvh.num_prims, 3, 4), f32),
         ("prim_ids", bvh.prim_ids, (bvh.num_prims,), i32),
         ("normals", normals, (nt, 3), f32),
@@ -254,6 +261,18 @@ def launch_hit(lib, sh: Shading, o, d, ref, state, active, dst, acc,
         ("materials", sh.mat, (M, MAT_COLS), f32),
         ("lights", sh.lights, (sh.total, LIGHT_COLS), f32),
         ("ambient", sh.amb, (3,), f32), ("epsilon", sh.eps, (), f32)])
+    return prims, bvh.prim_ids, normals, corner, geom_ids, nt
+
+
+def launch_hit(lib, sh: Shading, o, d, ref, state, active, dst, acc,
+               bounce: int, stream) -> Hit:
+    """Check the scene's tables, allocate the outputs and call
+    ``lib.vsnray_bounce_shade_hit`` on inputs ``shade_hit`` has checked;
+    raises on a launch error."""
+    n = o.shape[0]
+    f32 = torch.float32
+    prims, prim_ids, normals, corner, geom_ids, nt = _tables(ENTRY_HIT, sh,
+                                                            o.device)
     dev = o.device
 
     def new(*shape, dtype=f32):
@@ -274,7 +293,7 @@ def launch_hit(lib, sh: Shading, o, d, ref, state, active, dst, acc,
     err = lib.vsnray_bounce_shade_hit(
         o.data_ptr(), d.data_ptr(), ref.data_ptr(), state.data_ptr(),
         active.data_ptr(), dst.data_ptr(), acc.data_ptr(), prims.data_ptr(),
-        bvh.prim_ids.data_ptr(), normals.data_ptr(), _ptr(corner),
+        prim_ids.data_ptr(), normals.data_ptr(), _ptr(corner),
         geom_ids.data_ptr(), sh.mat.data_ptr(), _ptr(sh.lights),
         sh.amb.data_ptr(), sh.eps.data_ptr(), out.state.data_ptr(),
         out.carry.data_ptr(), _ptr(out.first_hit), _ptr(out.first_t),
@@ -341,6 +360,106 @@ def launch_close(lib, sh: Shading, d, hit: Hit, shadow_ref, dst, acc,
         int(sh.nee), int(bounce == 0), stream)
     if err != 0:
         raise RuntimeError(f"{ENTRY_CLOSE} launch failed: cudaError {err}")
+    return out
+
+
+@dataclass
+class Grads:
+    """``shade_backward``'s outputs, each None where not asked for: the
+    gradients of the bounce's ray origin and direction, dst and acc (n,
+    3), of the vertices (V, 3) and of the albedo ``cd`` (M, 3)."""
+
+    o: Optional[torch.Tensor]
+    d: Optional[torch.Tensor]
+    dst: Optional[torch.Tensor]
+    acc: Optional[torch.Tensor]
+    vertices: Optional[torch.Tensor]
+    cd: Optional[torch.Tensor]
+
+
+def shade_backward(sh: Shading, o, d, ref, state, active, dst, acc,
+                   prev_delta, shadow_ref, g_o, g_d, g_dst, g_acc,
+                   g_first_t, bounce: int, want) -> Grads:
+    """The adjoint of one bounce's ``shade_hit`` and ``shade_close``: its
+    inputs (``o``, ``d`` (n, 3), the closest walk's ``ref``, ``state``,
+    ``active``, ``dst``, ``acc``, ``prev_delta`` and the shadow walk's
+    ``shadow_ref``, None without one) and the gradients of its outputs
+    (the next ray's origin and direction, dst and acc (n, 3), the first t
+    (n,) at bounce 0), each None where none reaches it.  ``want``: the
+    names of ``Grads``' fields to compute.  CUDA tensors launch
+    ``vsnray_bounce_shade_bwd``; there is no CPU form (the CPU runs the
+    torch body's recompute, the kernel's plain version)."""
+    n = o.shape[0]
+    f32, i32 = torch.float32, torch.int32
+    gs = [None if g is None else g.to(f32).contiguous()
+          for g in (g_o, g_d, g_dst, g_acc, g_first_t)]
+    _check(ENTRY_BWD, o.device, n, [
+        ("o", o, (n, 3), f32), ("d", d, (n, 3), f32), ("ref", ref, (n,), i32),
+        ("state", state, (n,), torch.int64),
+        ("active", active, (n,), torch.bool), ("dst", dst, (n, 3), f32),
+        ("acc", acc, (n, 3), f32),
+        ("prev_delta", prev_delta, (n,), torch.bool),
+        ("shadow_ref", shadow_ref, (n,), i32),
+        *[(f"g_{k}", g, (n, 3), f32)
+          for k, g in zip(("o", "d", "dst", "acc"), gs)],
+        ("g_first_t", gs[4], (n,), f32)])
+    if (shadow_ref is None) != (not sh.nee or sh.total == 0):
+        raise ValueError(f"{ENTRY_BWD}: a shadow walk's refs go with NEE "
+                         f"and lights")
+    if o.device.type != "cuda":
+        raise ValueError(f"{ENTRY_BWD}: no kernel for {o.device} (the "
+                         f"torch body's recompute is its plain version)")
+    with torch.cuda.device(o.device):
+        stream = torch.cuda.current_stream(o.device).cuda_stream
+        out = launch_bwd(trav._library(), sh, o, d, ref, state, active, dst,
+                         acc, prev_delta, shadow_ref, *gs, bounce, want,
+                         stream)
+    trav.ENTRY_LAUNCHES[ENTRY_BWD] += 1
+    return out
+
+
+def launch_bwd(lib, sh: Shading, o, d, ref, state, active, dst, acc,
+               prev_delta, shadow_ref, g_o, g_d, g_dst, g_acc, g_first_t,
+               bounce: int, want, stream) -> Grads:
+    """Allocate the gradients in ``want`` (those of the vertices and the
+    albedo zeroed, in f64 for the kernel's sums) and call
+    ``lib.vsnray_bounce_shade_bwd`` on inputs ``shade_backward`` has
+    checked; raises on a launch error."""
+    n = o.shape[0]
+    dev = o.device
+    f32 = torch.float32
+    mesh = sh.scene.mesh
+    prims, prim_ids, normals, corner, geom_ids, nt = _tables(ENTRY_BWD, sh,
+                                                            dev)
+    M = sh.mat.shape[0]
+    out = Grads(**{k: torch.empty((n, 3), dtype=f32, device=dev)
+                   if k in want else None for k in ("o", "d", "dst", "acc")},
+                vertices=torch.zeros(tuple(mesh.vertices.shape),
+                                     dtype=torch.float64, device=dev)
+                if "vertices" in want else None,
+                cd=torch.zeros((M, 3), dtype=torch.float64, device=dev)
+                if "cd" in want else None)
+    faces = None
+    if out.vertices is not None:
+        faces = mesh.faces.to(torch.int32).contiguous()
+        _check(ENTRY_BWD, dev, n, [("faces", faces, (nt, 3), torch.int32)])
+    if n > 0:
+        err = lib.vsnray_bounce_shade_bwd(
+            o.data_ptr(), d.data_ptr(), ref.data_ptr(), state.data_ptr(),
+            active.data_ptr(), dst.data_ptr(), acc.data_ptr(),
+            prev_delta.data_ptr(), _ptr(shadow_ref), prims.data_ptr(),
+            prim_ids.data_ptr(), normals.data_ptr(), _ptr(corner),
+            geom_ids.data_ptr(), _ptr(faces), sh.mat.data_ptr(),
+            _ptr(sh.lights), sh.amb.data_ptr(), sh.eps.data_ptr(),
+            _ptr(g_o), _ptr(g_d), _ptr(g_dst), _ptr(g_acc), _ptr(g_first_t),
+            _ptr(out.o), _ptr(out.d), _ptr(out.dst), _ptr(out.acc),
+            _ptr(out.vertices), _ptr(out.cd), n, nt, sh.total, M,
+            int(sh.nee), int(bounce == 0), stream)
+        if err != 0:
+            raise RuntimeError(f"{ENTRY_BWD} launch failed: cudaError {err}")
+    for k in ("vertices", "cd"):
+        if getattr(out, k) is not None:
+            setattr(out, k, getattr(out, k).to(f32))
     return out
 
 

@@ -123,7 +123,8 @@ ENTRY_LAUNCHES = {"vsnray_traverse_binned": 0,
                   "vsnray_volume_march_bwd": 0,
                   "vsnray_volume_bricks": 0,
                   "vsnray_bounce_shade_hit": 0,
-                  "vsnray_bounce_shade_close": 0}
+                  "vsnray_bounce_shade_close": 0,
+                  "vsnray_bounce_shade_bwd": 0}
 
 _CUDA_DIR = Path(__file__).resolve().parent / "cuda"
 SOURCES = (_CUDA_DIR / "traverse_binned.cu",
@@ -233,7 +234,12 @@ def bind_library(lib_path) -> ctypes.CDLL:
             ("vsnray_bounce_shade_hit", [p] * 25 + [i] * 5 + [p]),
             # directions, the buffer, shadow refs, carry, materials,
             # epsilon, 7 outputs; n, lights, nee, first; the stream
-            ("vsnray_bounce_shade_close", [p] * 15 + [i] * 4 + [p])):
+            ("vsnray_bounce_shade_close", [p] * 15 + [i] * 4 + [p]),
+            # the pair's adjoint: 19 inputs (rays, refs, state, carry,
+            # shadow refs, scene tables with the faces), the gradients of
+            # 5 outputs, 6 gradients out; n, triangles, lights,
+            # materials, nee, first; the stream
+            ("vsnray_bounce_shade_bwd", [p] * 30 + [i] * 6 + [p])):
         fn = getattr(lib, entry, None)
         if fn is None:
             continue

@@ -9,15 +9,17 @@ those lanes are rendered and counted in the sum, and n stays the number of
 pixels.  At 1920x1080 the one 2^21-lane tile carries 23,552 such lanes.
 
 The gradient comes from ``kernels/pathtracing.py``'s bounces, each kept as
-its carry and its walks' outputs and recomputed in the backward through
-the torch body, with the walks replayed (``ops/traverse.py``'s tape), so
-the backward launches no walk.  Two paths: on a triangle scene on a flat
+its carry and its walks' outputs (``ops/traverse.py``'s tape), so the
+backward launches no walk.  Two paths: on a triangle scene on a flat
 LBVH-tier tree with point lights, RGB and no textures or hit filter
 (``_fused_ok``), each bounce's forward is the two hand shading kernels
 around the walks (``_FusedBounce``: five hit-kernel launches a 5-bounce
-step, none in the backward); any other scene runs the torch body's
-checkpointed bounces forward and back.  The loss is the same on both; the
-gradients differ only in the order autograd sums them into a leaf.
+step) and, on the card, its backward one launch of their adjoint kernel
+(five a step; on the CPU, the recompute below); any other scene runs the
+torch body's checkpointed bounces forward and recomputes them in the
+backward with the walks replayed.  The loss is the same on both; the
+gradients differ by the float32 rounding of each lane's chain rule and
+the order the lanes' shares are summed into a leaf.
 """
 
 from __future__ import annotations

@@ -86,7 +86,17 @@ def blinn_f(cs, ks, exp, n, wo, wi):
 
 
 def blinn_sample_f(cs, ks, exp, n, wo, u1, u2):
-    """Power-cosine half-vector sampling; returns (f, wi, pdf)."""
+    """Power-cosine half-vector sampling; returns (f, wi, pdf).
+
+    A half vector within rounding of perpendicular to ``wo`` reflects it
+    onto exactly ``-wo``, as ``wo . h == 0`` does: the reference gives
+    such a sample pdf 0 only where ``wo . h`` is exactly 0, and a tiny
+    nonzero ``wo . h`` leaves it a finite pdf and ``blinn_f``'s
+    ``normalize(wo + wi)`` a NaN colour, which ``next_ray`` multiplies
+    into dst (visionaray_tpu/shading/brdf.py:94, :114-119 do the same).
+    Here every sample with ``wo + wi == 0`` gets pdf 0 and colour 0
+    (``blinn_f`` taken at ``wo`` in its place, so that no NaN enters the
+    graph); every other sample is unchanged, bit for bit."""
     costheta = torch.pow(u1, 1.0 / (exp + 1.0))
     sintheta = torch.sqrt(torch.clamp_min(1.0 - costheta * costheta, 0.0))
     phi = u2 * TWO_PI
@@ -100,8 +110,10 @@ def blinn_sample_f(cs, ks, exp, n, wo, u1, u2):
     vdoth = dot(wo, h)
     pdf = ((exp + 1.0) * torch.pow(costheta, exp)) / \
           (2.0 * math.pi * 4.0 * torch.where(vdoth != 0.0, vdoth, 1.0))
-    pdf = torch.where(vdoth != 0.0, pdf, 0.0)
-    return blinn_f(cs, ks, exp, n, wo, wi), wi, pdf
+    ok = torch.any(wo + wi != 0.0, dim=-1)
+    pdf = torch.where(ok, pdf, 0.0)
+    f = blinn_f(cs, ks, exp, n, wo, torch.where(ok[..., None], wi, wo))
+    return torch.where(ok[..., None], f, 0.0), wi, pdf
 
 
 def specular_reflection_sample_f(cr, kr, ior, absorption, n, wo):
